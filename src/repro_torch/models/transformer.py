@@ -1,0 +1,256 @@
+"""Dense decoder-only transformer (llama-style: pre-RMSNorm, GQA + RoPE,
+SwiGLU) — the serving part of ``repro.models.transformer``.
+
+Parameters are the JAX package's nested dict with layer-stacked leaves
+(``blocks/wq`` is ``(L, d, q_dim)``, a ``PackedWeight`` when served from an
+artifact); the layers run as a Python loop over the leading axis. The paged
+KV pool is ``{"k": PagedKV, "v": PagedKV}`` of ``(L, N, P, ·)`` and is
+updated in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quantize import QuantMode, qlinear
+from repro_torch.kernels import ops
+from repro_torch.kernels.packing import PagedKV
+
+from .layers import (apply_rope, attention, attention_paged, dense_init,
+                     gated_mlp, kv_scatter_chunk_paged, kv_write_chunk_paged,
+                     kv_write_token_paged, rms_norm)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+         device=None):
+    """Seeded random parameters at ``cfg``'s widths (the JAX package's
+    layout and scales; ``torch.Generator`` draws, so the values differ)."""
+    device = gen.device if device is None else device
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    qd, kd = cfg.q_dim, cfg.kv_dim
+
+    def stack(din, dout, scale=1.0):
+        return torch.stack([dense_init(gen, din, dout, dtype, scale, device)
+                            for _ in range(L)])
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    out_scale = 1.0 / math.sqrt(2.0 * L)
+    blocks = {"ln1": full((L, d), 1.0), "wq": stack(d, qd),
+              "wk": stack(d, kd), "wv": stack(d, kd),
+              "wo": stack(qd, d, out_scale), "ln2": full((L, d), 1.0),
+              "wg": stack(d, f), "wu": stack(d, f),
+              "wd": stack(f, d, out_scale)}
+    if cfg.qkv_bias:
+        blocks["bq"] = full((L, qd), 0.0)
+        blocks["bk"] = full((L, kd), 0.0)
+        blocks["bv"] = full((L, kd), 0.0)
+    params = {"blocks": blocks, "ln_f": full((d,), 1.0)}
+    if cfg.embed_inputs:
+        params["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
+                                       device=device) * 0.02).to(dtype)
+        if not cfg.tie_embeddings:
+            params["head"] = dense_init(gen, d, cfg.vocab_size, dtype,
+                                        device=device)
+    else:
+        params["head"] = dense_init(gen, d, cfg.vocab_size, dtype,
+                                    device=device)
+    return params
+
+
+def head_matrix(params, cfg: ArchConfig):
+    if "head" in params:
+        return params["head"]
+    return params["embed"].T  # tied
+
+
+def head_out(x, params, cfg: ArchConfig, qm: QuantMode):
+    return qlinear(x, head_matrix(params, cfg), params.get("bhead"), qm,
+                   "head")
+
+
+def _layer(blocks: dict, i: int) -> dict:
+    return {k: v[i] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Block sublayers
+# ---------------------------------------------------------------------------
+
+def _qkv(x, p, cfg: ArchConfig, qm: QuantMode, pos):
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = qlinear(h, p["wq"], p.get("bq"), qm, "qkv")
+    k = qlinear(h, p["wk"], p.get("bk"), qm, "qkv")
+    v = qlinear(h, p["wv"], p.get("bv"), qm, "qkv")
+    q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.head_dim), pos,
+                   cfg.rope_theta)
+    kh = apply_rope(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), pos,
+                    cfg.rope_theta)
+    return q, kh.reshape(B, S, cfg.kv_dim), v
+
+
+def attn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode, pos,
+                  window: int = 0):
+    """Full-sequence attention (no cache). Returns (x', k, v)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, qm, pos)
+    out = attention(q, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                    v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                    causal=cfg.causal, q_pos=pos, window=window,
+                    chunk=cfg.attn_chunk)
+    out = qlinear(out.reshape(B, S, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, k, v
+
+
+def attn_sublayer_decode_paged(x, p, cfg: ArchConfig, qm: QuantMode,
+                               cache_k: PagedKV, cache_v: PagedKV,
+                               block_tables, cur_len, window: int = 0):
+    """One-token attention against a layer-sliced paged pool. x (B, 1, d);
+    cur_len (B,) per-lane fills. The new k/v land at page
+    ``block_tables[b, cur_len[b] // P]``, row ``cur_len[b] % P``; under the
+    fused backend attention is the paged flash-decode kernel."""
+    B = x.shape[0]
+    cl = torch.as_tensor(cur_len, device=x.device).long()
+    pos = cl[:, None]
+    q, k, v = _qkv(x, p, cfg, qm, pos)
+    P = cache_k.page_size
+    pages = torch.take_along_dim(block_tables.long(), (cl // P)[:, None],
+                                 dim=1)[:, 0]
+    offs = cl % P
+    kv_write_token_paged(cache_k, k, pages, offs)
+    kv_write_token_paged(cache_v, v, pages, offs)
+    out = attention_paged(q, cache_k, cache_v, block_tables, causal=True,
+                          q_pos=pos, kv_len=cl + 1, window=window,
+                          chunk=cfg.attn_chunk, backend=qm.backend)
+    out = qlinear(out.reshape(B, 1, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
+def attn_sublayer_chunk_paged(x, p, cfg: ArchConfig, qm: QuantMode,
+                              cache_k: PagedKV, cache_v: PagedKV,
+                              block_tables, pos, kv_len, window: int = 0):
+    """Chunked-prefill attention against a paged pool. ``pos`` is (C,)
+    positions shared by the lanes or (B, C) per lane; ``kv_len`` a scalar
+    or (B,). With a quantized pool under the fused backend the step is
+    ``ops.mx_flash_prefill`` (prefix pages through the block table, the
+    chunk quantized in-kernel) and its chunk bytes are scattered into the
+    pool; otherwise the chunk is quantized on append and attention runs on
+    the gathered pages."""
+    B, C = x.shape[0], x.shape[1]
+    q, k, v = _qkv(x, p, cfg, qm, pos)
+    posm = torch.as_tensor(pos, device=x.device)
+    start = posm[:, 0] if posm.ndim == 2 else posm[0]
+    if qm.backend == "fused" and cache_k.fmt != "none" and kv_len is not None:
+        startv = start.reshape(-1).expand(B)
+        klv = torch.as_tensor(kv_len, device=x.device).reshape(-1).expand(B)
+        out, kc, ksb, vc, vsb = ops.mx_flash_prefill(
+            q, k, v, cache_k.codes, cache_k.scales, cache_v.codes,
+            cache_v.scales, block_tables, startv, klv, cache_k.fmt,
+            window=window)
+        kv_scatter_chunk_paged(cache_k, kc, ksb, block_tables, startv)
+        kv_scatter_chunk_paged(cache_v, vc, vsb, block_tables, startv)
+        out = out.to(x.dtype)
+    else:
+        kv_write_chunk_paged(cache_k, k, block_tables, start)
+        kv_write_chunk_paged(cache_v, v, block_tables, start)
+        out = attention_paged(q, cache_k, cache_v, block_tables,
+                              causal=True, q_pos=pos, kv_len=kv_len,
+                              window=window, chunk=cfg.attn_chunk,
+                              backend=qm.backend)
+    out = qlinear(out.reshape(B, C, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
+def ffn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], qm, bg=p.get("bg"),
+                         bu=p.get("bu"), bd=p.get("bd"))
+
+
+# ---------------------------------------------------------------------------
+# Forward / paged prefill / paged decode
+# ---------------------------------------------------------------------------
+
+def _embed(params, inputs):
+    return params["embed"][inputs.long()]
+
+
+def forward(params, cfg: ArchConfig, inputs,
+            qm: QuantMode = QuantMode.off()):
+    """inputs (B, S) int tokens -> logits (B, S, V)."""
+    x = _embed(params, inputs)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return head_out(x, params, cfg, qm)
+
+
+def init_cache_paged(cfg: ArchConfig, n_pages: int, page_size: int,
+                     dtype=torch.float32, kv_quant=None, device="cpu"):
+    """A paged KV pool of N pages of P tokens per layer; MX-packed (codes +
+    E8M0 bytes) when ``kv_quant`` is given, dense ``dtype`` otherwise."""
+    fmt = kv_quant.fmt if kv_quant is not None else "none"
+    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim)
+    return {"k": PagedKV.zeros(shape, fmt, dtype, device),
+            "v": PagedKV.zeros(shape, fmt, dtype, device)}
+
+
+def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
+                        inputs, start, last_idx,
+                        qm: QuantMode = QuantMode.off()):
+    """Chunked prefill against a paged pool: C tokens per lane at positions
+    start..start+C-1, written through ``block_tables`` (B, maxp). ``start``
+    and ``last_idx`` (index within the chunk of the last real token) are
+    ints shared by the lanes or (B,) per-lane tensors. Returns (logits
+    (B, V) at last_idx, cache)."""
+    x = _embed(params, inputs)
+    dev = x.device
+    C = x.shape[1]
+    st = torch.as_tensor(start, device=dev).long()
+    ar = torch.arange(C, device=dev)
+    pos = st[:, None] + ar[None, :] if st.ndim == 1 else st + ar
+    bt = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_chunk_paged(
+            x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, pos, st + C,
+            window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    li = torch.as_tensor(last_idx, device=dev).long()
+    if li.ndim == 1:
+        xl = torch.take_along_dim(x, li[:, None, None], dim=1)
+    else:
+        xl = x[:, li][:, None]
+    xl = rms_norm(xl, params["ln_f"], cfg.norm_eps)
+    return head_out(xl[:, 0], params, cfg, qm), cache
+
+
+def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
+                 block_tables, qm: QuantMode = QuantMode.off()):
+    """One decode step over a paged pool. inputs (B,) tokens; cur_len (B,)
+    per-lane fills; block_tables (B, maxp). Returns (logits (B, V),
+    cache)."""
+    x = _embed(params, inputs[:, None])
+    bt = torch.as_tensor(block_tables, device=x.device).to(torch.int32)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_decode_paged(
+            x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, cur_len,
+            window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return head_out(x[:, 0], params, cfg, qm), cache

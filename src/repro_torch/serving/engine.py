@@ -1,0 +1,971 @@
+"""Serving engine of the port: continuous batching over a paged MX KV pool
+— the main-path subset of ``repro.serving.engine``.
+
+A fixed pool of B decode lanes shares one paged KV pool addressed through
+per-request block tables (page 0 is the scrap page that idle lanes park
+on). Admission chain-hashes each prompt's full pages (sha256) and reuses
+cached prefix pages by reference, copies a shared page before a rewrite
+lands in it (copy-on-write), and prefills up to
+``policy.max_prefill_lanes_per_step`` requests together in one chunked
+loop. Decode is greedy, in bursts of back-to-back steps with one host sync
+per burst, with a per-lane finite-logit guard. Schedule counters and
+greedy tokens follow the JAX engine step for step.
+
+Waiting for later slices: the wave scheduler, the contiguous layout,
+sampling, speculative decoding, deadlines, cancel, preemption (a request
+the pool cannot take waits in the queue until pages free up), admission
+shedding, fault injection and the tracer.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import devices
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quantize import KVCacheQuant, QuantMode
+from repro_torch.models import api
+from repro_torch.obs import MetricsRegistry
+from repro_torch.serving.policy import (RequestQueue, RequestState,
+                                        SchedulingPolicy)
+
+SCHEDULERS = ("continuous",)
+KV_LAYOUTS = ("paged",)
+
+
+class BlockAllocator:
+    """Ref-counted allocator over the paged KV pool's page ids.
+
+    Page ids live in [reserved, n_pages) (ids below ``reserved`` are scrap
+    pages that idle lanes park their block tables on). A page is **free**
+    (on the free list), **referenced** (``ref > 0``) or **cached** (``ref
+    == 0`` but registered under a prefix hash, parked in an LRU and
+    evicted only when the free list runs dry). :meth:`alloc` returns
+    ``None`` when even eviction cannot cover a request (backpressure)."""
+
+    def __init__(self, n_pages: int, page_size: int, reserved: int = 0):
+        if n_pages - reserved < 1:
+            raise ValueError(f"pool needs at least one allocatable page "
+                             f"(n_pages={n_pages}, reserved={reserved})")
+        self.n_pages, self.page_size = n_pages, page_size
+        self.reserved = reserved
+        self._free = collections.deque(range(reserved, n_pages))
+        self._ref = {p: 0 for p in range(reserved, n_pages)}
+        self._page_of: dict = {}                # prefix hash -> page id
+        self._hash_of: dict = {}                # page id -> prefix hash
+        self._lru: collections.OrderedDict = collections.OrderedDict()
+        self.evicted = 0                        # cumulative LRU evictions
+
+    @property
+    def capacity(self) -> int:
+        """Total allocatable pages."""
+        return self.n_pages - self.reserved
+
+    @property
+    def available(self) -> int:
+        """Pages obtainable right now (free + evictable cached)."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def in_use(self) -> int:
+        """Pages referenced by at least one block table."""
+        return self.capacity - self.available
+
+    @property
+    def cached(self) -> int:
+        """Pages parked for prefix reuse (ref == 0, registered)."""
+        return len(self._lru)
+
+    @property
+    def free(self) -> int:
+        """Pages on the free list (content garbage)."""
+        return len(self._free)
+
+    @property
+    def resident(self) -> int:
+        """Pages holding live KV bytes (referenced or cached)."""
+        return self.capacity - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n fresh pages at ref == 1, or None (caller applies
+        backpressure). Eviction order is least-recently-cached first."""
+        if n > self.available:
+            return None
+        out = []
+        for _ in range(n):
+            if self._free:
+                p = self._free.popleft()
+            else:
+                p, _ = self._lru.popitem(last=False)
+                del self._page_of[self._hash_of.pop(p)]
+                self.evicted += 1
+            self._ref[p] = 1
+            out.append(p)
+        return out
+
+    def incref(self, p: int) -> None:
+        if self._ref[p] == 0:
+            self._lru.pop(p, None)              # cached -> referenced
+        self._ref[p] += 1
+
+    def decref(self, p: int) -> None:
+        if self._ref[p] <= 0:
+            raise ValueError(f"decref of unreferenced page {p}")
+        self._ref[p] -= 1
+        if self._ref[p] == 0:
+            if p in self._hash_of:
+                self._lru[p] = True             # cached: evictable
+            else:
+                self._free.append(p)
+
+    def register(self, h, p: int) -> Optional[int]:
+        """Publish page ``p`` as the cached copy of prefix hash ``h``.
+        First registration wins."""
+        if h in self._page_of or p in self._hash_of:
+            return self._page_of.get(h)
+        self._page_of[h] = p
+        self._hash_of[p] = h
+        return p
+
+    def lookup(self, h) -> Optional[int]:
+        """Page cached under prefix hash ``h`` (refreshing its LRU
+        recency), or None."""
+        p = self._page_of.get(h)
+        if p is not None and self._ref[p] == 0:
+            self._lru.move_to_end(p)
+        return p
+
+    def check(self) -> dict:
+        """Verify the allocator's invariants — free + cached + referenced
+        partition [reserved, n_pages) exactly; raises AssertionError on a
+        violation, else returns ``{"free", "cached", "in_use",
+        "evicted"}``."""
+        if any(r < 0 for r in self._ref.values()):
+            raise AssertionError("negative refcount")
+        fs = set(self._free)
+        cs = set(self._lru)
+        rs = {p for p, r in self._ref.items() if r > 0}
+        if len(fs) != len(self._free):
+            raise AssertionError("duplicate page on the free list")
+        for a, b, what in ((fs, cs, "free/cached"), (fs, rs, "free/ref"),
+                           (cs, rs, "cached/ref")):
+            if a & b:
+                raise AssertionError(f"page in two states: {what} "
+                                     f"{sorted(a & b)}")
+        allp = set(range(self.reserved, self.n_pages))
+        if fs | cs | rs != allp:
+            raise AssertionError(
+                f"pages unaccounted for: missing {sorted(allp - fs - cs - rs)}"
+                f" extra {sorted((fs | cs | rs) - allp)}")
+        for p in cs:
+            if p not in self._hash_of:
+                raise AssertionError(f"cached page {p} has no hash")
+        if len(self._page_of) != len(self._hash_of):
+            raise AssertionError("hash<->page maps out of sync")
+        for h, p in self._page_of.items():
+            if self._hash_of.get(p) != h:
+                raise AssertionError(f"hash map mismatch on page {p}")
+        if self.in_use + self.free + self.cached != self.capacity:
+            raise AssertionError(
+                f"in_use {self.in_use} + free {self.free} + cached "
+                f"{self.cached} != capacity {self.capacity}")
+        return {"free": self.free, "cached": self.cached,
+                "in_use": self.in_use, "evicted": self.evicted}
+
+
+@dataclasses.dataclass(eq=False)       # identity eq/hash: a request is
+class Request:                         # a handle, not a value
+    """One generation request. prompt (S,) int32 token ids; max_new the
+    decode budget; ``on_token`` an optional callback for each emitted
+    token; ``out`` the emitted int32 tokens once the request completes.
+    ``t_*`` are wall-clock timestamps, ``m_*`` ``time.perf_counter()``
+    readings that every duration is computed from."""
+
+    prompt: np.ndarray                  # (S,) int32
+    max_new: int = 16
+    out: Optional[np.ndarray] = None
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    m_submit: float = 0.0
+    m_first: float = 0.0
+    m_done: float = 0.0
+    on_token: Optional[Callable[[int], None]] = None
+    priority: int = 0                   # higher admits first
+    request_id: Optional[str] = None
+    state: RequestState = RequestState.QUEUED
+    error: Optional[str] = None
+    _gen: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Per-lane decode state."""
+
+    req: Request
+    toks: List[int]          # emitted tokens
+    pos: int                 # cache fill == next write position
+    remaining: int           # decode budget left
+
+
+class Engine:
+    """Continuous-batching engine over ``api.prefill_chunk_paged`` /
+    ``api.decode_paged`` on ``device`` (default: the CUDA card).
+
+    ``params`` may hold dense tensors or ``PackedWeight`` leaves (artifact
+    serving, :meth:`from_artifact`); under ``backend='fused'`` the packed
+    weights feed the GEMM kernel and a quantized pool (``kv_cache``) the
+    paged flash-prefill and flash-decode kernels. :meth:`submit` enqueues,
+    :meth:`step` runs one scheduler step, :meth:`drain` steps until idle,
+    :meth:`generate` = submit all + drain."""
+
+    _RUN_KEYS = ("admitted", "decode_steps", "slot_steps",
+                 "useful_decode_tokens", "prefill_chunk_steps",
+                 "prefill_batched_steps", "prefill_lane_steps",
+                 "prefix_hit_tokens", "blocks_evicted")
+
+    def __init__(self, params, cfg: ArchConfig, qm: QuantMode,
+                 batch_size: int = 4, max_len: int = 256,
+                 backend: str | None = None,
+                 scheduler: str = "continuous",
+                 eos_id: Optional[int] = None,
+                 kv_cache: "str | KVCacheQuant | None" = None,
+                 kv_layout: str = "paged",
+                 page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 policy: Optional[SchedulingPolicy] = None,
+                 device=None):
+        """Arguments as in the JAX engine. ``scheduler`` must be
+        'continuous' and ``kv_layout`` 'paged' (the others are not ported
+        yet). page_size defaults to the smallest multiple of attn_chunk
+        >= 64 and must be a multiple of 32 and of attn_chunk; n_pages
+        defaults to one scrap page + batch_size * ceil(max_len /
+        page_size). ``device`` is where the engine runs: None means the
+        CUDA card, and the CPU runs only when asked for."""
+        self.device = devices.resolve(device)
+        if scheduler not in SCHEDULERS:
+            raise ValueError(f"scheduler {scheduler!r} is not ported yet "
+                             f"(ported: {SCHEDULERS})")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout {kv_layout!r} is not ported yet "
+                             f"(ported: {KV_LAYOUTS})")
+        if cfg.family != "dense" or not cfg.embed_inputs:
+            raise ValueError(f"the port serves the dense token-embedding "
+                             f"family; got {cfg.family!r}")
+        self.policy = policy if policy is not None else SchedulingPolicy()
+        self.kv_quant = KVCacheQuant.parse(kv_cache)
+        if self.kv_quant is not None and cfg.kv_dim % 32 != 0:
+            raise ValueError(
+                f"kv_cache quantization needs kv_dim % 32 == 0 (one E8M0 "
+                f"scale per 32-block along the cache feature axis), got "
+                f"kv_dim={cfg.kv_dim} for {cfg.name!r}")
+        if backend is not None:
+            qm = qm.with_backend(backend)
+        self.params = devices.tree_to(params, self.device)
+        self.cfg, self.qm = cfg, qm
+        self.B = batch_size
+        self.scheduler = scheduler
+        self.kv_layout = kv_layout
+        self.eos_id = eos_id
+        chunk = cfg.attn_chunk
+        self.max_len = (max_len + chunk - 1) // chunk * chunk
+        if page_size is None:
+            page_size = chunk * max(1, -(-64 // chunk))
+        if page_size % 32 != 0:
+            raise ValueError(f"page_size must be a multiple of the MX "
+                             f"32-block, got {page_size}")
+        if page_size % chunk != 0:
+            raise ValueError(
+                f"page_size must be a whole number of attention chunks so "
+                f"prefix-resume positions stay chunk-aligned; got "
+                f"page_size={page_size}, attn_chunk={chunk}")
+        self.page_size = page_size
+        self.pages_per_slot = -(-self.max_len // page_size)
+        if n_pages is None:
+            n_pages = 1 + self.B * self.pages_per_slot
+        if n_pages < 1 + self.pages_per_slot:
+            raise ValueError(
+                f"n_pages={n_pages} cannot hold one scrap page plus a "
+                f"full-length request ({self.pages_per_slot} pages for "
+                f"max_len={self.max_len})")
+        # page 0 is the scrap page idle lanes' tables park on
+        self._alloc = BlockAllocator(n_pages, page_size, reserved=1)
+        self._tables = np.zeros((self.B, self.pages_per_slot), np.int32)
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._slot_pages: List[Optional[List[int]]] = [None] * self.B
+
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        reg = self.metrics
+        self._c_admitted = reg.counter(
+            "serving_requests_admitted_total",
+            help="requests admitted into a scheduler lane")
+        self._c_decode_steps = reg.counter(
+            "serving_decode_steps_total",
+            help="batched decode steps dispatched")
+        self._c_slot_steps = reg.counter(
+            "serving_slot_steps_total",
+            help="decode steps x lanes (utilization denominator)")
+        self._c_useful = reg.counter(
+            "serving_useful_decode_tokens_total",
+            help="decoded tokens that made it into a request's output")
+        self._c_chunk_steps = reg.counter(
+            "serving_prefill_chunk_steps_total",
+            help="chunked-prefill invocations (drops under prefix hits)")
+        self._c_prefill_batched = reg.counter(
+            "serving_prefill_batched_steps_total",
+            help="chunked-prefill invocations that carried >=2 lanes")
+        self._c_prefill_lane_steps = reg.counter(
+            "serving_prefill_lane_steps_total",
+            help="chunked-prefill invocations x active lanes")
+        self._h_prefill_batch = reg.histogram(
+            "serving_prefill_batch_size", unit="lanes",
+            help="active lanes per chunked-prefill invocation")
+        self._c_prefix_hit_toks = reg.counter(
+            "serving_prefix_hit_tokens_total", unit="tokens",
+            help="prompt tokens served from cached prefix pages")
+        self._c_prefix_hits = reg.counter(
+            "serving_prefix_cache_hits_total",
+            help="paged admissions that reused >=1 cached prefix page")
+        self._c_prefix_misses = reg.counter(
+            "serving_prefix_cache_misses_total",
+            help="paged admissions with no cached prefix page")
+        self._c_evicted = reg.counter(
+            "serving_blocks_evicted_total",
+            help="cached prefix pages reclaimed by LRU eviction")
+        self._g_blocks_in_use = reg.gauge(
+            "serving_blocks_in_use", unit="pages",
+            help="pages referenced by live block tables")
+        self._g_blocks_cached = reg.gauge(
+            "serving_blocks_cached", unit="pages",
+            help="unreferenced pages parked for prefix reuse")
+        self._g_queue_depth = reg.gauge(
+            "serving_queue_depth", unit="requests",
+            help="requests waiting for a lane")
+        self._h_ttft = reg.histogram(
+            "serving_ttft_seconds", unit="s",
+            help="time to first token (submit -> first token available)")
+        self._h_tpot = reg.histogram(
+            "serving_tpot_seconds", unit="s",
+            help="time per output token after the first")
+        self._h_latency = reg.histogram(
+            "serving_request_latency_seconds", unit="s",
+            help="submit -> done")
+        self._h_queue_wait = reg.histogram(
+            "serving_queue_wait_seconds", unit="s",
+            help="submit -> admission start")
+        self._c_submitted = reg.counter(
+            "serving_requests_submitted_total",
+            help="requests accepted by submit()")
+        self._c_terminal = {
+            s: reg.counter("serving_requests_terminal_total",
+                           {"state": s.value},
+                           help="requests reaching this terminal state")
+            for s in (RequestState.FINISHED, RequestState.FAILED)}
+        self._c_nan = reg.counter(
+            "serving_nan_guard_trips_total",
+            help="requests failed by the per-lane non-finite-logit guard")
+        self._c_never_fit = reg.counter(
+            "serving_rejected_never_fit_total",
+            help="requests rejected at admission because prompt+budget "
+                 "can never fit the pool")
+        self._evicted_seen = 0
+
+        self._queue = RequestQueue()
+        self._next_id = 0
+        self._slots: List[Optional[_Slot]] = [None] * self.B
+        self._admit_cursor = 0
+        self._cache = None                # the paged pool (lazy)
+
+    # ------------------------------------------------------------------
+    # Counter views
+    # ------------------------------------------------------------------
+
+    @property
+    def admitted(self) -> int:
+        return int(self._c_admitted.value)
+
+    @property
+    def decode_steps(self) -> int:
+        return int(self._c_decode_steps.value)
+
+    @property
+    def slot_steps(self) -> int:
+        return int(self._c_slot_steps.value)
+
+    @property
+    def useful_decode_tokens(self) -> int:
+        return int(self._c_useful.value)
+
+    @property
+    def prefill_chunk_steps(self) -> int:
+        return int(self._c_chunk_steps.value)
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        return int(self._c_prefix_hit_toks.value)
+
+    def _sync_alloc_metrics(self) -> None:
+        self._g_blocks_in_use.set(self._alloc.in_use)
+        self._g_blocks_cached.set(self._alloc.cached)
+        if self._alloc.evicted > self._evicted_seen:
+            self._c_evicted.inc(self._alloc.evicted - self._evicted_seen)
+            self._evicted_seen = self._alloc.evicted
+
+    @classmethod
+    def from_artifact(cls, path, batch_size: int = 4, max_len: int = 256,
+                      eager: bool = False, verify: bool = True,
+                      backend: str | None = None,
+                      scheduler: str = "continuous",
+                      eos_id: Optional[int] = None,
+                      kv_cache: "str | KVCacheQuant | None" = None,
+                      kv_layout: str = "paged",
+                      page_size: Optional[int] = None,
+                      n_pages: Optional[int] = None,
+                      metrics: Optional[MetricsRegistry] = None,
+                      policy: Optional[SchedulingPolicy] = None,
+                      device=None) -> "Engine":
+        """Serve an exported artifact directory: load the packed bytes
+        onto ``device`` (default: the CUDA card) and build the engine —
+        no calibration, no re-quantization."""
+        from repro_torch.artifacts import load_artifact
+        dev = devices.resolve(device)
+        params, cfg, qm = load_artifact(path, eager=eager, verify=verify,
+                                        backend=backend, device=dev)
+        return cls(params, cfg, qm, batch_size=batch_size, max_len=max_len,
+                   scheduler=scheduler, eos_id=eos_id, kv_cache=kv_cache,
+                   kv_layout=kv_layout, page_size=page_size,
+                   n_pages=n_pages, metrics=metrics, policy=policy,
+                   device=dev)
+
+    # ------------------------------------------------------------------
+    # Streaming API
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> Request:
+        """Enqueue a request; it starts on the next :meth:`step`."""
+        req.t_submit = time.time()
+        req.m_submit = time.perf_counter()
+        if req.request_id is None:
+            req.request_id = f"req-{self._next_id}"
+            self._next_id += 1
+        self._c_submitted.inc()
+        req.state = RequestState.QUEUED
+        self._queue.push(req)
+        self._g_queue_depth.set(len(self._queue))
+        return req
+
+    def step(self) -> List[Request]:
+        """One scheduler step: admit queued requests into free lanes
+        (batched chunked prefill), then one decode burst over every live
+        lane. Returns the requests completed by it."""
+        self._ensure_pool()
+        done: List[Request] = []
+        self._admit_batched(done, max(1, self.policy.max_prefill_lanes_per_step))
+        self._admit_cursor = (self._admit_cursor + 1) % self.B
+        live = [i for i in range(self.B) if self._slots[i] is not None]
+        if live:
+            self._decode_burst(live, done)
+        self._sync_alloc_metrics()
+        self._g_queue_depth.set(len(self._queue))
+        return done
+
+    @property
+    def busy(self) -> bool:
+        """True while any request is queued or occupies a lane."""
+        return bool(len(self._queue)) or any(
+            s is not None for s in self._slots)
+
+    def drain(self) -> List[Request]:
+        """Step until the queue and every lane are empty."""
+        done: List[Request] = []
+        while self.busy:
+            done.extend(self.step())
+        return done
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Serve a list of requests; returns the same list (original
+        order) with ``out`` and the latency fields filled."""
+        for r in requests:
+            self.submit(r)
+        self.drain()
+        return requests
+
+    # ------------------------------------------------------------------
+    # Helpers
+    # ------------------------------------------------------------------
+
+    def _finish(self, req: Request, toks,
+                state: RequestState = RequestState.FINISHED,
+                error: Optional[str] = None) -> None:
+        """Move ``req`` into terminal ``state`` with output ``toks``."""
+        req.out = np.asarray(toks, np.int32)
+        req.state = state
+        if error is not None:
+            req.error = error
+        req.t_done = time.time()
+        req.m_done = time.perf_counter()
+        if not req.m_first and state is RequestState.FINISHED:
+            req.m_first, req.t_first = req.m_done, req.t_done
+        self._c_terminal[state].inc()
+        self._c_useful.inc(max(len(req.out) - 1, 0))
+        if req.m_submit:
+            self._h_latency.observe(req.m_done - req.m_submit)
+            if req.m_first:
+                self._h_ttft.observe(req.m_first - req.m_submit)
+        if len(req.out) > 1 and req.m_done > req.m_first > 0:
+            self._h_tpot.observe((req.m_done - req.m_first)
+                                 / (len(req.out) - 1))
+
+    def _never_fits(self, req: Request) -> Optional[str]:
+        s = len(req.prompt)
+        if s + req.max_new > self.max_len:
+            return f"prompt {s} + max_new {req.max_new} > max_len " \
+                   f"{self.max_len}"
+        pages = -(-(s + req.max_new) // self.page_size)
+        if pages > self._alloc.capacity:
+            return (f"needs {pages} pages but the pool holds only "
+                    f"{self._alloc.capacity} even after evicting every "
+                    f"cached page")
+        return None
+
+    def _reject_never_fit(self, req: Request, err: str,
+                          done: List[Request]) -> None:
+        self._c_never_fit.inc()
+        self._finish(req, req._gen, state=RequestState.FAILED,
+                     error=f"request can never fit the KV pool: {err} — "
+                           f"raise max_len/n_pages or lower max_new")
+        done.append(req)
+
+    def _ensure_pool(self) -> None:
+        if self._cache is not None:
+            return
+        emb = self.params.get("embed")
+        dt = emb.dtype if emb is not None else torch.float32
+        self._cache = api.init_cache_paged(
+            self.cfg, self._alloc.n_pages, self.page_size, dt,
+            kv_quant=self.kv_quant, device=self.device)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never a view of it: the host
+        array is mutated between steps)."""
+        return torch.tensor(a, device=self.device)
+
+    def _tables_committed(self) -> torch.Tensor:
+        if self._tables_dev is None:
+            self._tables_dev = self._tensor(self._tables)
+        return self._tables_dev
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Clone pool page ``src`` into ``dst`` over every layer (codes and
+        scales of K and V): the copy-on-write of a partly reused prefix
+        page."""
+        for pool in (self._cache["k"], self._cache["v"]):
+            pool.codes[:, dst] = pool.codes[:, src]
+            if pool.scales is not None:
+                pool.scales[:, dst] = pool.scales[:, src]
+
+    # ------------------------------------------------------------------
+    # Paged admission: block tables + ref-counted prefix caching
+    # ------------------------------------------------------------------
+
+    def _page_hashes(self, prompt: np.ndarray) -> List[bytes]:
+        """Chained content hashes of the prompt's full pages: hash j
+        commits to tokens [0, (j+1)*P)."""
+        P = self.page_size
+        hs: List[bytes] = []
+        h = hashlib.sha256(b"mx-paged-kv")
+        for j in range(len(prompt) // P):
+            h = hashlib.sha256(
+                h.digest()
+                + np.ascontiguousarray(prompt[j * P:(j + 1) * P],
+                                       np.int32).tobytes())
+            hs.append(h.digest())
+        return hs
+
+    def _release_paged(self, slot: int) -> None:
+        """Drop lane ``slot``'s page references and park its block table
+        on the scrap page."""
+        pages = self._slot_pages[slot]
+        if pages is not None:
+            for p in pages:
+                self._alloc.decref(p)
+            self._slot_pages[slot] = None
+        self._tables[slot, :] = 0
+        self._tables_dev = None
+
+    def _admit_paged_prep(self, slot: int, req: Request,
+                          in_flight: bool = False) -> Optional[dict]:
+        """Host half of a paged admission: page accounting, prefix
+        matching, copy-on-write and the lane's block-table row. Returns a
+        plan for the prefill loop, or None on backpressure (every page
+        reference taken here released)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        s = len(prompt)
+        C = self.cfg.attn_chunk
+        P = self.page_size
+        if s + req.max_new > self.max_len:
+            raise ValueError(
+                f"request does not fit the KV pool: prompt {s} + max_new "
+                f"{req.max_new} > max_len {self.max_len}")
+        n_req_pages = -(-(s + req.max_new) // P)
+        hashes = self._page_hashes(prompt)
+        matched: List[int] = []
+        for h in hashes:
+            p = self._alloc.lookup(h)
+            if p is None:
+                break
+            matched.append(p)
+        # resume at whole matched pages, capped so the chunk holding the
+        # last prompt token always re-runs (its logits seed decode)
+        resume = max(0, min(len(matched) * P, (s - 1) // C * C))
+        m_full = resume // P
+        cow_src = matched[m_full] if resume % P else None
+        for p in matched[:m_full]:
+            self._alloc.incref(p)
+        if cow_src is not None:
+            self._alloc.incref(cow_src)     # pin across alloc + copy
+        fresh = self._alloc.alloc(n_req_pages - m_full)
+        if fresh is None:
+            for p in matched[:m_full]:
+                self._alloc.decref(p)
+            if cow_src is not None:
+                self._alloc.decref(cow_src)
+            if not in_flight and not any(sl is not None
+                                         for sl in self._slots):
+                raise ValueError(
+                    f"KV page pool exhausted with no requests in flight: "
+                    f"request needs {n_req_pages - m_full} fresh pages but "
+                    f"only {self._alloc.available} of "
+                    f"{self._alloc.capacity} are obtainable — raise n_pages "
+                    f"or lower max_new")
+            return None
+        pages = matched[:m_full] + fresh
+        if cow_src is not None:
+            self._copy_page(cow_src, fresh[0])
+            self._alloc.decref(cow_src)
+        self._c_prefix_hit_toks.inc(resume)
+        (self._c_prefix_hits if m_full else self._c_prefix_misses).inc()
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(pages)] = pages
+        self._tables_dev = None
+        n_chunks = -(-(s - resume) // C)
+        buf = np.zeros(n_chunks * C, np.int32)
+        buf[:s - resume] = prompt[resume:]
+        return {"slot": slot, "req": req, "s": s, "resume": resume,
+                "n_chunks": n_chunks, "buf": buf, "pages": pages,
+                "hashes": hashes}
+
+    def _prefill_plan_serial(self, plan: dict) -> tuple:
+        """One plan's chunked prefill, one lane per call."""
+        slot, s, resume = plan["slot"], plan["s"], plan["resume"]
+        C = self.cfg.attn_chunk
+        buf = plan["buf"]
+        table_row = self._tensor(self._tables[slot:slot + 1])
+        logits = None
+        for ci in range(plan["n_chunks"]):
+            width = min(s - resume - ci * C, C)
+            logits, self._cache = api.prefill_chunk_paged(
+                self.params, self.cfg, self._cache, table_row,
+                self._tensor(buf[None, ci * C:(ci + 1) * C]),
+                resume + ci * C, width - 1, self.qm)
+            self._c_chunk_steps.inc()
+            self._c_prefill_lane_steps.inc()
+            self._h_prefill_batch.observe(1)
+        return self._admit_paged_finish(plan, logits[0].cpu().numpy())
+
+    def _admit_paged_finish(self, plan: dict, row: np.ndarray) -> tuple:
+        """Register the prompt's full pages for prefix sharing, pin the
+        lane's page list, take the greedy first token."""
+        slot, s = plan["slot"], plan["s"]
+        for j in range(s // self.page_size):
+            self._alloc.register(plan["hashes"][j], plan["pages"][j])
+        self._slot_pages[slot] = plan["pages"]
+        return s, int(row.argmax()), bool(np.isfinite(row).all())
+
+    def _record_admission(self, req: Request, t_a0: float,
+                          t_a1: float, ok: bool) -> None:
+        self._c_admitted.inc()
+        req.state = RequestState.RUNNING
+        if not req.m_first and ok:
+            req.m_first = t_a1
+            req.t_first = time.time()
+            if req.m_submit:
+                self._h_queue_wait.observe(t_a0 - req.m_submit)
+
+    def _post_admission(self, i: int, req: Request, res: tuple,
+                        done: List[Request]) -> bool:
+        """NaN guard, first-token emission, same-step completion or lane
+        occupancy. Returns True when lane ``i`` is now occupied."""
+        sb, tok, ok = res
+        if not ok:
+            self._c_nan.inc()
+            self._release_paged(i)
+            self._finish(req, req._gen, state=RequestState.FAILED,
+                         error=f"non-finite logits at prefill (lane {i})")
+            done.append(req)
+            return False
+        req._gen.append(tok)
+        if req.on_token is not None:
+            req.on_token(tok)
+        if req.max_new - len(req._gen) == 0 or tok == self.eos_id:
+            self._finish(req, req._gen)
+            done.append(req)
+            self._release_paged(i)
+            return False
+        self._slots[i] = _Slot(req, req._gen, sb,
+                               req.max_new - len(req._gen))
+        return True
+
+    def _admit_batched(self, done: List[Request], knob: int) -> None:
+        """Admit up to ``knob`` queued requests through ONE chunked-prefill
+        loop whose calls carry every candidate lane (per-lane block tables,
+        start offsets and last-token indices on the batch axis). A
+        candidate whose prompt pages collide with hashes an earlier
+        candidate of this batch registers is deferred to the next step,
+        so its prefix hit is not lost. Lanes that are not candidates, or
+        whose prompt ran out, ride along on an all-zeros table row (the
+        scrap page); their logits rows are never read."""
+        C = self.cfg.attn_chunk
+        P = self.page_size
+        plans: List[dict] = []
+        pending: set = set()
+        stop = False
+        for off in range(self.B):
+            if stop or len(plans) >= knob:
+                break
+            i = (self._admit_cursor + off) % self.B
+            if self._slots[i] is not None:
+                continue
+            while True:
+                req = self._queue.pop(time.perf_counter())
+                if req is None:
+                    stop = True
+                    break
+                err = self._never_fits(req)
+                if err is not None:
+                    self._reject_never_fit(req, err, done)
+                    continue
+                if req.max_new - len(req._gen) <= 0:
+                    self._c_admitted.inc()
+                    self._finish(req, req._gen)
+                    done.append(req)
+                    continue
+                if plans and any(h in pending for h in self._page_hashes(
+                        np.asarray(req.prompt, np.int32))):
+                    self._queue.push_front(req)
+                    stop = True
+                    break
+                t_a0 = time.perf_counter()
+                plan = self._admit_paged_prep(i, req, in_flight=bool(plans))
+                if plan is None:
+                    self._queue.push_front(req)
+                    stop = True
+                    break
+                plan["t0"] = t_a0
+                pending.update(plan["hashes"][:plan["s"] // P])
+                plans.append(plan)
+                break
+        if not plans:
+            return
+        if len(plans) == 1:
+            # a batch of one is the serial path
+            p = plans[0]
+            res = self._prefill_plan_serial(p)
+            self._record_admission(p["req"], p["t0"], time.perf_counter(),
+                                   res[2])
+            self._post_admission(p["slot"], p["req"], res, done)
+            return
+
+        B = self.B
+        tables = np.zeros((B, self._tables.shape[1]), np.int32)
+        for p in plans:
+            tables[p["slot"]] = self._tables[p["slot"]]
+        tables_d = self._tensor(tables)
+        n_steps = max(p["n_chunks"] for p in plans)
+        lane_logits: dict = {}
+        for ci in range(n_steps):
+            active = [p for p in plans if ci < p["n_chunks"]]
+            if ci and any(p["n_chunks"] == ci for p in plans):
+                # a lane just ran out of chunks: park it on the scrap
+                # table, or its ride-along rows would overwrite its KV
+                for p in plans:
+                    if p["n_chunks"] <= ci:
+                        tables[p["slot"]] = 0
+                tables_d = self._tensor(tables)
+            toks = np.zeros((B, C), np.int32)
+            starts = np.zeros(B, np.int32)
+            last = np.zeros(B, np.int32)
+            for p in active:
+                toks[p["slot"]] = p["buf"][ci * C:(ci + 1) * C]
+                starts[p["slot"]] = p["resume"] + ci * C
+                last[p["slot"]] = min(p["s"] - p["resume"] - ci * C, C) - 1
+            logits, self._cache = api.prefill_chunk_paged(
+                self.params, self.cfg, self._cache, tables_d,
+                self._tensor(toks), self._tensor(starts),
+                self._tensor(last), self.qm)
+            self._c_chunk_steps.inc()
+            self._c_prefill_lane_steps.inc(len(active))
+            if len(active) > 1:
+                self._c_prefill_batched.inc()
+            self._h_prefill_batch.observe(len(active))
+            for p in active:
+                if ci == p["n_chunks"] - 1:
+                    lane_logits[p["slot"]] = logits[p["slot"]]
+        t_a1 = time.perf_counter()
+        for p in plans:
+            res = self._admit_paged_finish(
+                p, lane_logits[p["slot"]].cpu().numpy())
+            self._record_admission(p["req"], p["t0"], t_a1, res[2])
+            self._post_admission(p["slot"], p["req"], res, done)
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+
+    def _decode_burst(self, live: List[int], done: List[Request]) -> None:
+        """Decode every lane (idle lanes ride along on the scrap page).
+        With no eos_id every lane runs exactly ``remaining`` more steps,
+        so all steps up to the next lane completion are dispatched
+        back-to-back, the sampled tokens fed straight back on the device,
+        with one host sync for the whole burst."""
+        burst = 1 if self.eos_id is not None else min(
+            self._slots[i].remaining for i in live)
+        cur = np.zeros(self.B, np.int32)
+        pos = np.zeros(self.B, np.int32)
+        for i in live:
+            cur[i] = self._slots[i].toks[-1]
+            pos[i] = self._slots[i].pos
+        cur_d, pos_d = self._tensor(cur), self._tensor(pos)
+        tables_d = self._tables_committed()
+        toks_dev, oks_dev = [], []
+        for _ in range(burst):
+            logits, self._cache = api.decode_paged(
+                self.params, self.cfg, self._cache, cur_d, pos_d, tables_d,
+                self.qm)
+            oks_dev.append(torch.isfinite(logits).all(dim=-1))
+            cur_d = logits.argmax(dim=-1).to(torch.int32)
+            toks_dev.append(cur_d)
+            pos_d = pos_d + 1
+            self._c_decode_steps.inc()
+            self._c_slot_steps.inc(self.B)
+        host = torch.stack(toks_dev, dim=1).cpu().numpy()   # one sync
+        okh = torch.stack(oks_dev, dim=1).cpu().numpy()
+        for step in range(burst):
+            for i in live:
+                sl = self._slots[i]
+                if sl is None:
+                    continue
+                if not okh[i, step]:
+                    self._c_nan.inc()
+                    self._slots[i] = None
+                    self._release_paged(i)
+                    self._finish(sl.req, sl.toks, state=RequestState.FAILED,
+                                 error=f"non-finite logits in lane {i} at "
+                                       f"decode position {sl.pos}")
+                    done.append(sl.req)
+                    continue
+                tok = int(host[i, step])
+                sl.toks.append(tok)
+                sl.pos += 1
+                sl.remaining -= 1
+                if sl.req.on_token is not None:
+                    sl.req.on_token(tok)
+                if sl.remaining == 0 or tok == self.eos_id:
+                    self._finish(sl.req, sl.toks)
+                    done.append(sl.req)
+                    self._slots[i] = None
+                    self._release_paged(i)
+
+    # ------------------------------------------------------------------
+    # Accounting
+    # ------------------------------------------------------------------
+
+    def _counter_values(self) -> dict:
+        self._sync_alloc_metrics()
+        return {"admitted": self.admitted,
+                "decode_steps": self.decode_steps,
+                "slot_steps": self.slot_steps,
+                "useful_decode_tokens": self.useful_decode_tokens,
+                "prefill_chunk_steps": self.prefill_chunk_steps,
+                "prefill_batched_steps": int(self._c_prefill_batched.value),
+                "prefill_lane_steps": int(self._c_prefill_lane_steps.value),
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "blocks_evicted": int(self._c_evicted.value)}
+
+    @staticmethod
+    def _quantiles(h) -> dict:
+        if h.count == 0:
+            return {"p50": None, "p99": None}
+        return {"p50": h.quantile(0.5), "p99": h.quantile(0.99)}
+
+    def stats(self) -> dict:
+        """The schedule counters (cumulative since construction), decode
+        utilization, TTFT / TPOT quantiles in seconds and the terminal-state
+        counts — the JAX engine's keys for the parts this engine has."""
+        cum = self._counter_values()
+        ttft = self._quantiles(self._h_ttft)
+        tpot = self._quantiles(self._h_tpot)
+        return {"scheduler": self.scheduler, "backend": self.qm.backend,
+                "kv_cache": (self.kv_quant.fmt if self.kv_quant else "none"),
+                "kv_layout": self.kv_layout, "device": str(self.device),
+                **cum,
+                "decode_utilization": (
+                    cum["useful_decode_tokens"] / cum["slot_steps"]
+                    if cum["slot_steps"] else 0.0),
+                "prefill_lanes_per_step": (
+                    cum["prefill_lane_steps"]
+                    / max(cum["prefill_chunk_steps"], 1)),
+                "blocks_in_use": self._alloc.in_use,
+                "ttft_p50": ttft["p50"], "ttft_p99": ttft["p99"],
+                "tpot_p50": tpot["p50"], "tpot_p99": tpot["p99"],
+                "submitted": int(self._c_submitted.value),
+                "terminal": {s.value: int(c.value)
+                             for s, c in self._c_terminal.items()},
+                "nan_guard_trips": int(self._c_nan.value),
+                "rejected_never_fit": int(self._c_never_fit.value)}
+
+    def kv_bytes_resident(self) -> int:
+        """Bytes of the pool holding data the engine may read: pages
+        referenced by a live block table or cached for prefix reuse, plus
+        the scrap page."""
+        if self._cache is None:
+            return 0
+        total = 0
+        for pool in self._cache.values():
+            for t in (pool.codes, pool.scales):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+        live = self._alloc.resident + self._alloc.reserved
+        return total * live // self._alloc.n_pages
+
+    def throughput(self, n_requests: int = 8, prompt_len: int = 32,
+                   max_new: int = 32, seed: int = 0) -> dict:
+        """Tokens/second over a synthetic request wave (greedy), plus the
+        schedule counters of this run. Host clock around work that ends in
+        a device sync (the decode burst's token fetch)."""
+        rng = np.random.default_rng(seed)
+        reqs = [Request(prompt=rng.integers(
+            0, self.cfg.vocab_size, prompt_len).astype(np.int32),
+            max_new=max_new) for _ in range(n_requests)]
+        before = self.stats()
+        t0 = time.perf_counter()
+        done = self.generate(reqs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        toks = sum(len(r.out) for r in done)
+        run = self.stats()
+        for k in self._RUN_KEYS:
+            run[k] -= before[k]
+        run["decode_utilization"] = (
+            run["useful_decode_tokens"] / run["slot_steps"]
+            if run["slot_steps"] else 0.0)
+        return {"tokens": toks, "seconds": dt,
+                "tok_per_s": toks / dt if dt > 0 else float("inf"), **run}

@@ -1,0 +1,140 @@
+"""The port's serving engine against the JAX engine: the same shared-prefix
+requests through ``repro_torch`` (CPU, fused backend, paged mxfp8 pool)
+and ``repro`` (reference backend) give the same greedy tokens and the
+same schedule counters, and leave the allocator clean."""
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.artifacts import export_artifact as j_export
+from repro.configs.base import ArchConfig as JArch
+from repro.core import ptq as jptq
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import Request as JRequest
+from repro_torch.serving.engine import Engine as TEngine
+from repro_torch.serving.engine import Request as TRequest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CKPT = ROOT / "experiments" / "bench_model" / "step_00000250" / "arrays.npz"
+BENCH = dict(name="bench-llama", family="dense", n_layers=4, d_model=128,
+             n_heads=8, n_kv_heads=4, head_dim=16, d_ff=352, vocab_size=512,
+             attn_chunk=64)
+COUNTERS = ("admitted", "decode_steps", "slot_steps", "prefill_chunk_steps",
+            "prefill_lane_steps", "prefill_batched_steps",
+            "prefix_hit_tokens", "useful_decode_tokens")
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    with np.load(CKPT) as z:
+        flat = {k[len("params/"):]: jnp.asarray(z[k]) for k in z.files
+                if k.startswith("params/")}
+    params = {"blocks": {}}
+    for key, v in flat.items():
+        if key.startswith("blocks/"):
+            params["blocks"][key[len("blocks/"):]] = v
+        else:
+            params[key] = v
+    cfg = JArch(**BENCH)
+    res = jptq.apply_method("rtn", params, cfg, calib=[])
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    out = tmp_path_factory.mktemp("engine") / "bench-mxfp4"
+    j_export(res, cfg, out)
+    return out
+
+
+def _prompts():
+    """Two requests share a 64-token prefix (one chunk), two do not, and a
+    fifth is exactly the first 128 prompt tokens of the first: with
+    128-token pages it resumes inside a cached page (copy-on-write)."""
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, 512, 128).astype(np.int32)
+    ps = [np.concatenate([prefix, rng.integers(0, 512, 20).astype(np.int32)]),
+          np.concatenate([prefix[:64],
+                          rng.integers(0, 512, 45).astype(np.int32)])]
+    ps += [rng.integers(0, 512, t).astype(np.int32) for t in (30, 90)]
+    return ps + [prefix.copy()]
+
+
+@pytest.mark.parametrize("page_size", (None, 128))
+def test_engine_matches_jax_engine(artifact, page_size):
+    kw = dict(batch_size=4, max_len=192, scheduler="continuous",
+              kv_layout="paged", kv_cache="mxfp8", page_size=page_size)
+    jeng = JEngine.from_artifact(artifact, backend="ref", **kw)
+    teng = TEngine.from_artifact(artifact, backend="fused", device="cpu",
+                                 **kw)
+    jreqs = [JRequest(prompt=p, max_new=12) for p in _prompts()]
+    treqs = [TRequest(prompt=p, max_new=12) for p in _prompts()]
+    jeng.generate(jreqs)
+    teng.generate(treqs)
+    for a, b in zip(treqs, jreqs):
+        assert a.state.value == b.state.value == "finished"
+        np.testing.assert_array_equal(a.out, b.out)
+    js, ts = jeng.stats(), teng.stats()
+    assert {k: ts[k] for k in COUNTERS} == {k: js[k] for k in COUNTERS}
+    assert ts["prefix_hit_tokens"] > 0
+    assert teng._alloc.check()["in_use"] == 0
+    assert teng.kv_bytes_resident() == jeng.kv_bytes_resident()
+
+
+def test_engine_never_fit_and_counters(artifact):
+    eng = TEngine.from_artifact(artifact, backend="fused", device="cpu",
+                                batch_size=2, max_len=128, kv_cache="mxfp8")
+    big = TRequest(prompt=np.zeros(120, np.int32), max_new=20)
+    ok = TRequest(prompt=np.arange(10, dtype=np.int32), max_new=3)
+    eng.generate([big, ok])
+    assert big.state.value == "failed" and "never fit" in big.error
+    assert ok.state.value == "finished" and len(ok.out) == 3
+    st = eng.stats()
+    assert st["rejected_never_fit"] == 1
+    assert st["terminal"] == {"finished": 1, "failed": 1}
+    eng._alloc.check()
+
+
+def test_serve_entry_point_on_the_cpu(artifact, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--artifact", str(artifact), "--device", "cpu",
+                       "--requests", "3", "--prompt-len", "20",
+                       "--max-new", "4"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["tokens"] == 12 and res["device"] == "cpu"
+    assert res["backend"] == "fused" and res["kv_cache"] == "mxfp8"
+    assert res["admitted"] == 3 and res["terminal"]["finished"] == 3
+
+
+def test_port_imports_no_jax_and_defaults_to_the_card():
+    """Every repro_torch module imports without loading jax or any repro.*
+    module, and an entry point asked for no device raises without a
+    card."""
+    code = r"""
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "repro.")) or k == "repro")
+assert not bad, bad
+import torch
+from repro_torch import configs
+from repro_torch.core.quantize import QuantMode
+from repro_torch.serving.engine import Engine
+if not torch.cuda.is_available():
+    try:
+        Engine({}, configs.get_reduced("qwen2-0.5b"), QuantMode.off())
+    except RuntimeError as e:
+        assert "device" in str(e)
+    else:
+        raise AssertionError("Engine ran on the CPU without being asked")
+print("ok")
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
