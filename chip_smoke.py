@@ -6,20 +6,27 @@
 Phases, in order (each raises on failure; nothing is caught):
 
 1. card facts: ``nvidia-smi`` name and power limit, torch / CUDA versions,
-   the build of the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the Qwen2-0.5B shapes of the serving path, with CUDA-event times of the
-   kernel, the plain version and one PyTorch library call, and the least
-   time the card could take (``bound_ms``);
+   the build of the six CUDA sources in ``src/repro_torch/kernels/csrc``;
+2. kernels: each of the seven kernels against its plain PyTorch version on
+   the card, at the Qwen2-0.5B shapes of the serving path, with CUDA-event
+   times of the kernel, the plain version and one PyTorch library call
+   (where one computes the same function), and the least time the card
+   could take (``bound_ms``);
 3. end to end: Qwen2-0.5B at its published widths (24 layers, random
    weights from a seed, RTN mxfp4 with the T3 rotation) exported as an
-   artifact and served by ``Engine.from_artifact`` (fused backend,
-   continuous scheduler, paged mxfp8 KV cache) for four requests, two of
-   which share a one-page prefix; the kernel launch counts of that run;
-   then the first prefill and one decode step again with every kernel
-   call held against its plain version on the same inputs (the values the
-   reference backend computes there), and the fused logits and greedy
-   tokens compared with the reference backend's.
+   artifact and served by ``Engine.from_artifact`` (fused backend, mxfp8
+   KV cache, 4 lanes) three ways, each with the launch counts zeroed just
+   before and read just after: the engine's default path (wave scheduler,
+   contiguous cache), the continuous scheduler on the contiguous cache,
+   and the continuous scheduler on the paged cache with two requests that
+   share a one-page prefix. A ``torch.profiler`` breakdown of a wave run
+   and of a paged run; the first prefill and one decode step of each
+   layout again with every kernel call held against its plain version on
+   the same inputs; the paged path's fused logits and greedy tokens
+   compared with the reference backend's;
+4. the standalone kernel entry points (``ops.mx_quantize``,
+   ``ops.t3_quantize``, ``ops.mx_gemm``) driven as a caller would, on a
+   weight and activations of the served model's widths.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -44,16 +51,28 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FP8 = 1979e12               # dense tensor-core rates, H100 SXM
 PEAK_BF16 = 989e12
 
+PEAK_F32 = 67e12                 # CUDA cores, outside the tensor cores
+
 TPU_KERNEL = {   # the Pallas kernel each CUDA kernel replaces (def line)
     "mx_gemm_packed": "src/repro/kernels/mx_matmul.py:170",
     "mx_flash_prefill": "src/repro/kernels/mx_attention.py:478",
     "mx_flash_decode_paged": "src/repro/kernels/mx_attention.py:270",
+    "mx_flash_decode": "src/repro/kernels/mx_attention.py:180",
+    "mx_quantize": "src/repro/kernels/mx_quant.py:72",
+    "t3_quantize": "src/repro/kernels/hadamard_quant.py:46",
+    "mx_gemm": "src/repro/kernels/mx_matmul.py:96",
 }
 SOURCE = {
     "mx_gemm_packed": "src/repro_torch/kernels/csrc/mx_gemm.cu",
     "mx_flash_prefill": "src/repro_torch/kernels/csrc/mx_prefill.cu",
     "mx_flash_decode_paged": "src/repro_torch/kernels/csrc/mx_decode_paged.cu",
+    "mx_flash_decode": "src/repro_torch/kernels/csrc/mx_decode.cu",
+    "mx_quantize": "src/repro_torch/kernels/csrc/mx_quant.cu",
+    "t3_quantize": "src/repro_torch/kernels/csrc/mx_quant.cu",
+    "mx_gemm": "src/repro_torch/kernels/csrc/mx_matmul.cu",
 }
+MX_FMTS = ("mxfp4", "mxint4", "mxfp6", "mxfp8", "mxint8")
+PAGED_KERNELS = ("mx_gemm_packed", "mx_flash_prefill", "mx_flash_decode_paged")
 
 
 def log(*a):
@@ -298,6 +317,160 @@ def check_prefill(torch, dev, gen):
     return entry
 
 
+def check_flash_decode(torch, dev, gen):
+    """The contiguous-cache flash decode at the paged check's shape: B = 4
+    lanes of a 2048-row cache filled to [1330, 1180, 250, 140]."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, packing, ref
+    B, H, kvh, Dh, S = 4, 14, 2, 64, 2048
+    D, G = kvh * Dh, H // kvh
+    kv_len = [1330, 1180, 250, 140]
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qp = kl - 1
+    q = torch.randn(B, H, Dh, generator=gen, device=dev)
+    entry = None
+    for fmt in ("mxfp8", "mxint8", "mxfp4", "mxint4"):
+        kc, ks = packing.kv_encode(torch.randn(B, S, D, generator=gen,
+                                               device=dev), fmt)
+        vc, vs = packing.kv_encode(torch.randn(B, S, D, generator=gen,
+                                               device=dev), fmt)
+        for window in (0, 300):
+            out = ops.mx_flash_decode(q, kc, ks, vc, vs, qp, kl, fmt,
+                                      window=window)
+            outp = ref.mx_attention_ref(q, kc, ks, vc, vs, qp, kl, fmt,
+                                        window=window)
+            torch.cuda.synchronize()
+            err = (out - outp).abs().max().item()
+            log(f"flash_decode {fmt} window={window}: max_abs_err {err:.3e}")
+            if not err <= 1e-5:
+                raise AssertionError(f"mx_flash_decode disagrees with its "
+                                     f"plain version ({fmt}, window "
+                                     f"{window})")
+            if fmt != "mxfp8" or window:
+                continue
+            ms = cuda_ms(torch, lambda: ops.mx_flash_decode(
+                q, kc, ks, vc, vs, qp, kl, fmt), 200)
+            plain = cuda_ms(torch, lambda: ref.mx_attention_ref(
+                q, kc, ks, vc, vs, qp, kl, fmt), 20)
+
+            def heads(c, sc):
+                t = packing.kv_decode(c, sc, fmt).reshape(B, S, kvh, Dh)
+                return t.transpose(1, 2).repeat_interleave(G, dim=1) \
+                    .contiguous()
+            kd, vd = heads(kc, ks), heads(vc, vs)
+            kp = torch.arange(S, device=dev)
+            mask = (kp[None, :] < kl[:, None].long())[:, None, None, :]
+            q4 = q[:, :, None, :].contiguous()
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask), 200)
+            row = D + D // 32          # mxfp8: one code byte per feature
+            nbytes = 2 * B * H * Dh * 4 + 2 * sum(kv_len) * row + 2 * B * 4
+            b, by = bound_ms(nbytes, 4.0 * H * Dh * sum(kv_len), PEAK_BF16)
+            log(f"flash_decode {fmt} B={B} S={S} kv_len={kv_len}: kernel_ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+                f"bound_ms {b:.4f} ({by})")
+            entry = {"name": "mx_flash_decode",
+                     "shape": f"B={B} H={H} kvh={kvh} Dh={Dh} S={S} "
+                              f"kv_len={kv_len} {fmt}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b, "bound_by": by, "library_ms": lib}
+    return entry
+
+
+def _spread(torch, gen, dev, M, K):
+    """Normal values whose 32-blocks span several binades."""
+    x = torch.randn(M, K, generator=gen, device=dev)
+    e = torch.randint(-3, 6, (M, K // 32, 1), generator=gen,
+                      device=dev).float()
+    return (x.reshape(M, K // 32, 32) * torch.exp2(e)).reshape(M, K)
+
+
+def check_quantizers(torch, dev, gen):
+    """mx_quantize and t3_quantize at the ffn_down activation's widths,
+    byte-equal to their plain versions in every MX format. No single
+    PyTorch call computes an MX encode, so library_ms is null."""
+    from repro_torch.kernels import ops, ref
+    entries = []
+    for name, kernel, plain_fn, t3 in (
+            ("mx_quantize", ops.mx_quantize, ref.mx_quant_ref, False),
+            ("t3_quantize", ops.t3_quantize, ref.hadamard_quant_ref, True)):
+        for M, K in ((4096, 4864), (4, 4864)):
+            x = _spread(torch, gen, dev, M, K)
+            for fmt in MX_FMTS:
+                c, sc = kernel(x, fmt)
+                cp, sp = plain_fn(x, fmt)
+                torch.cuda.synchronize()
+                same = torch.equal(c, cp) and torch.equal(sc, sp)
+                if not same:
+                    n = int((c != cp).sum()) + int((sc != sp).sum())
+                    raise AssertionError(f"{name} ({M}, {K}) {fmt}: {n} "
+                                         f"bytes differ from the plain "
+                                         f"version")
+            iters = 200 if M == 4 else 20
+            ms = cuda_ms(torch, lambda: kernel(x, "mxfp4"), iters)
+            plain = cuda_ms(torch, lambda: plain_fn(x, "mxfp4"),
+                            max(iters // 4, 5))
+            nbytes = M * K * 4 + M * K + M * (K // 32) * 4
+            flops = M * K * (2 + (64 if t3 else 0))
+            b, by = bound_ms(nbytes, flops, PEAK_F32)
+            log(f"{name} ({M}, {K}): codes and scales byte-equal to the "
+                f"plain version in {', '.join(MX_FMTS)}; mxfp4 kernel_ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
+                f"{b:.4f} ({by})")
+            if M == 4096:
+                entries.append({
+                    "name": name, "shape": f"M={M} K={K} mxfp4 (bytes "
+                    f"checked in {'/'.join(MX_FMTS)})", "max_abs_err": 0.0,
+                    "ms": ms, "plain_ms": plain, "bound_ms": b,
+                    "bound_by": by, "library_ms": None})
+    return entries
+
+
+def check_unpacked_gemm(torch, dev, gen):
+    """mx_gemm (one code byte per weight, f32 scales) at M = 4 and 4096 with
+    (K, N) = (896, 4864), mxfp4 and mxfp8, held within 1e-5 of max |y| of
+    its plain version; library: torch.matmul on dequantized f32
+    operands."""
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels import ops, ref
+    K, N = 896, 4864
+    entry = None
+    for fmt in ("mxfp4", "mxfp8"):
+        w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+        wc, ws = ref.mx_quant_ref(w.T.contiguous(), fmt)
+        wc, ws = wc.T.contiguous(), ws.T.contiguous()
+        for M in (4, 4096):
+            x = torch.randn(M, K, generator=gen, device=dev)
+            y = ops.mx_gemm(x, wc, ws, fmt)
+            yp = ref.mx_matmul_ref(x, wc, ws, fmt)
+            torch.cuda.synchronize()
+            err = (y - yp).abs().max().item()
+            tol = 1e-5 * yp.abs().max().item()
+            log(f"mx_gemm M={M} K={K} N={N} {fmt}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"mx_gemm disagrees with its plain "
+                                     f"version at M={M} {fmt}")
+            iters = 200 if M == 4 else 20
+            ms = cuda_ms(torch, lambda: ops.mx_gemm(x, wc, ws, fmt), iters)
+            plain = cuda_ms(torch, lambda: ref.mx_matmul_ref(x, wc, ws, fmt),
+                            max(iters // 4, 5))
+            xq = mxlib.quantize(x, mxlib.MXConfig(fmt=fmt))
+            wd = ref.mx_dequant_ref(wc.T, ws.T, fmt).T.contiguous()
+            lib = cuda_ms(torch, lambda: torch.matmul(xq, wd), iters)
+            nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
+            b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
+            log(f"mx_gemm M={M} K={K} N={N} {fmt}: kernel_ms {ms:.4f} "
+                f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+                f"{b:.4f} ({by})")
+            if (M, fmt) == (4096, "mxfp4"):
+                entry = {"name": "mx_gemm",
+                         "shape": f"M={M} K={K} N={N} {fmt}",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib}
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path end to end at full width
 # ---------------------------------------------------------------------------
@@ -312,7 +485,7 @@ def traffic(rng, vocab: int):
                       for t in (150, 250)]
 
 
-def profile_serving(torch, eng, Request, cfg, seed: int) -> None:
+def profile_serving(torch, eng, Request, cfg, seed: int, label: str) -> None:
     """torch.profiler over a second serving run of the same shape (fresh
     prompts): device time by kernel name and the device's busy share of
     the wall time."""
@@ -334,10 +507,45 @@ def profile_serving(torch, eng, Request, cfg, seed: int) -> None:
         rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel names")
     for ms, n, key in rows[:15]:
-        log(f"profile: {ms:10.3f} ms {n:7d}x  {key[:90]}")
+        log(f"profile {label}: {ms:10.3f} ms {n:7d}x  {key[:90]}")
+
+
+def serve(torch, Engine, Request, art, prompts, cfg, **kw):
+    """One served run of ``prompts`` x 32 greedy tokens with the launch
+    counts zeroed just before and read just after. Returns (engine,
+    requests, launches, stats)."""
+    from repro_torch.kernels import ops
+    eng = Engine.from_artifact(art, backend="fused", **kw)
+    reqs = [Request(prompt=p, max_new=32) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    st = eng.stats()
+    toks = sum(len(r.out) for r in reqs)
+    label = f"{kw['scheduler']}/{kw['kv_layout']}"
+    log(f"e2e {label}: {len(reqs)} requests, {toks} tokens in {dt:.3f} s = "
+        f"{toks / dt:.1f} tok/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"e2e {label} stats: " + json.dumps({k: st[k] for k in (
+        "admitted", "decode_steps", "slot_steps", "prefill_chunk_steps",
+        "prefill_lane_steps", "prefill_batched_steps", "prefix_hit_tokens",
+        "blocks_in_use")}) + f", kv_bytes_resident {eng.kv_bytes_resident()}")
+    log(f"e2e {label} launches: {launches}")
+    for r in reqs:
+        if r.state.value != "finished" or len(r.out) != 32:
+            raise AssertionError(f"request ended {r.state.value} with "
+                                 f"{len(r.out)} tokens: {r.error}")
+        if not ((r.out >= 0) & (r.out < cfg.vocab_size)).all():
+            raise AssertionError("token ids outside the vocabulary")
+    return eng, reqs, launches, st
 
 
 def end_to_end(torch, dev, seed: int):
@@ -351,6 +559,8 @@ def end_to_end(torch, dev, seed: int):
     from repro_torch.serving.engine import Engine, Request
 
     cfg = configs.get("qwen2-0.5b")
+    L = cfg.n_layers
+    gemms_per_forward = 7 * L      # q, k, v, o, gate, up, down per layer
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = transformer.init(gen, cfg, device=dev)
@@ -359,70 +569,71 @@ def end_to_end(torch, dev, seed: int):
     # so the ffn_down prologue of the GEMM kernel is on the path
     res.qm = dataclasses.replace(res.qm, t3_block=32)
     del params
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         art = pathlib.Path(tmp) / "qwen2-0.5b-mxfp4"
         export_artifact(res, cfg, art)
         del res
         torch.cuda.synchronize()
         log(f"e2e: init + RTN + export {time.perf_counter() - t0:.1f} s "
-            f"({cfg.n_layers} layers)")
-        kw = dict(batch_size=4, max_len=2048, scheduler="continuous",
-                  kv_layout="paged", kv_cache="mxfp8", device=dev)
-        eng = Engine.from_artifact(art, backend="fused", **kw)
+            f"({L} layers)")
         params, _, qm = load_artifact(art, device=dev)
+        common = dict(batch_size=4, max_len=2048, kv_cache="mxfp8",
+                      device=dev)
 
-    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
-    reqs = [Request(prompt=p, max_new=32) for p in prompts]
+        # the engine's default path: wave scheduler, contiguous cache
+        eng, _, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
+                               scheduler="wave", kv_layout="contiguous",
+                               **common)
+        check_contiguous_launches(lw, st, L, gemms_per_forward,
+                                  1 + st["decode_steps"], "wave")
+        launches["wave"] = lw
+        profile_serving(torch, eng, Request, cfg, seed, "wave/contiguous")
+        del eng
 
-    ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(reqs)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    st = eng.stats()
-    toks = sum(len(r.out) for r in reqs)
-    log(f"e2e: {len(reqs)} requests, {toks} tokens in {dt:.3f} s = "
-        f"{toks / dt:.1f} tok/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("e2e stats: " + json.dumps({k: st[k] for k in (
-        "admitted", "decode_steps", "slot_steps", "prefill_chunk_steps",
-        "prefill_lane_steps", "prefill_batched_steps", "prefix_hit_tokens",
-        "blocks_in_use")}))
-    log(f"e2e launches: {launches}")
-    for r in reqs:
-        if r.state.value != "finished" or len(r.out) != 32:
-            raise AssertionError(f"request ended {r.state.value} with "
-                                 f"{len(r.out)} tokens: {r.error}")
+        eng, _, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
+                               scheduler="continuous",
+                               kv_layout="contiguous", **common)
+        check_contiguous_launches(
+            lc, st, L, gemms_per_forward,
+            st["prefill_chunk_steps"] + st["decode_steps"], "continuous")
+        launches["continuous"] = lc
+        del eng
+
+        kw = dict(scheduler="continuous", kv_layout="paged", **common)
+        eng, reqs, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
+                                  **kw)
+        launches["paged"] = lp
     if st["prefix_hit_tokens"] <= 0:
         raise AssertionError("the shared prefix was not served from cache")
     eng._alloc.check()
     if eng._alloc.in_use:
         raise AssertionError(f"{eng._alloc.in_use} pages still in use")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
-    if launches["mx_flash_decode_paged"] != st["decode_steps"] * cfg.n_layers:
+    for name in PAGED_KERNELS:
+        if lp[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"paged path")
+    if lp["mx_flash_decode_paged"] != st["decode_steps"] * L:
         raise AssertionError(
-            f"decode kernel launched {launches['mx_flash_decode_paged']}x, "
-            f"expected decode_steps x layers = "
-            f"{st['decode_steps'] * cfg.n_layers}")
-    if not all(((r.out >= 0) & (r.out < cfg.vocab_size)).all()
-               for r in reqs):
-        raise AssertionError("token ids outside the vocabulary")
-    profile_serving(torch, eng, Request, cfg, seed)
+            f"decode kernel launched {lp['mx_flash_decode_paged']}x, "
+            f"expected decode_steps x layers = {st['decode_steps'] * L}")
+    profile_serving(torch, eng, Request, cfg, seed, "continuous/paged")
 
     # The first prefill and one decode step again, fused, with every kernel
     # call held against its plain version on the same inputs: the values
     # the reference backend computes at that call, at all layers.
     P, C = eng.page_size, cfg.attn_chunk
     p0 = prompts[0]
+    fused = qm.with_backend("fused")
     worst = teacher_forced(torch, ops, lambda q: prefill_and_step(
         torch, transformer, params, cfg, q, eng.kv_quant, P, C, p0, dev),
-        qm.with_backend("fused"))
-    log("e2e teacher-forced, worst error per kernel call: "
+        fused)
+    log("e2e paged teacher-forced, worst error per kernel call: "
+        + json.dumps(worst))
+    worst = teacher_forced(torch, ops, lambda q: contiguous_prefill_and_step(
+        torch, transformer, params, cfg, q, eng.kv_quant, p0, dev), fused)
+    log("e2e contiguous teacher-forced, worst error per kernel call: "
         + json.dumps(worst))
     # Full depth, fused against reference. An attention output that moves by
     # 1e-7 flips an activation code at a grid midpoint downstream, and the
@@ -445,7 +656,73 @@ def end_to_end(torch, dev, seed: int):
     ref_eng.generate(ref_reqs)
     agree = sum(int(a == b) for r, s in zip(reqs, ref_reqs)
                 for a, b in zip(r.out.tolist(), s.out.tolist()))
-    log(f"e2e: greedy tokens fused == ref: {agree}/{toks}")
+    log(f"e2e: paged greedy tokens fused == ref: {agree}/"
+        f"{sum(len(r.out) for r in reqs)}")
+    return launches, params
+
+
+def check_contiguous_launches(launches, st, L, gemms_per_forward, forwards,
+                              label):
+    """A contiguous run launches the contiguous flash decode once per layer
+    per decode step, the packed GEMM 7 x layers times per forward, and
+    nothing of the paged path or the standalone entry points."""
+    want = {"mx_flash_decode": st["decode_steps"] * L,
+            "mx_gemm_packed": gemms_per_forward * forwards}
+    for name, n in launches.items():
+        if launches[name] != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n}x, expected "
+                                 f"{want.get(name, 0)}")
+
+
+def contiguous_prefill_and_step(torch, transformer, params, cfg, qm,
+                                kv_quant, prompt, dev):
+    """Full prefill of ``prompt`` into a fresh 2048-row contiguous cache,
+    then one decode step of its greedy token at the shared position."""
+    lg, cache = transformer.prefill(
+        params, cfg, torch.as_tensor(prompt[None], device=dev), qm,
+        max_len=2048, kv_quant=kv_quant)
+    nxt = lg.argmax(dim=-1).to(torch.int32)
+    lg2, _ = transformer.decode(params, cfg, cache, nxt, len(prompt), qm)
+    return lg[0].float(), lg2[0].float()
+
+
+def standalone_path(torch, dev, params):
+    """The standalone entry points as a caller drives them: MX-encode the
+    served model's first gate projection (896 x 4864, dequantized) into the
+    unpacked layout with ``ops.mx_quantize``, multiply decode- and
+    prefill-sized activations by it with ``ops.mx_gemm``, and run the
+    online T3 quantizer on an ffn_down-wide activation. Counts zeroed just
+    before, read just after."""
+    from repro_torch.kernels import ops, ref
+    w = params["blocks"]["wg"][0].to_dense()             # (K, N) f32
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randn(m, w.shape[0], generator=gen, device=dev)
+          for m in (4, 4096)]
+    h = torch.randn(4096, w.shape[1], generator=gen, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    codes, scales = ops.mx_quantize(w.T.contiguous(), "mxfp4")
+    ys = [ops.mx_gemm(x, codes.T.contiguous(), scales.T.contiguous(),
+                      "mxfp4") for x in xs]
+    hc, hs = ops.t3_quantize(h, "mxfp4")
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    log(f"standalone path launches: {launches}")
+    for name in ("mx_quantize", "t3_quantize", "mx_gemm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on its path")
+    # the artifact's weight is on the mxfp4 grid: re-encoding it is exact
+    if not torch.equal(ref.mx_dequant_ref(codes, scales).T, w):
+        raise AssertionError("mx_quantize did not reproduce the grid weight")
+    for x, y in zip(xs, ys):
+        yp = ref.mx_matmul_ref(x, codes.T, scales.T)
+        if not (y - yp).abs().max() <= 1e-5 * yp.abs().max():
+            raise AssertionError("mx_gemm on the model weight disagrees "
+                                 "with its plain version")
+    hcp, hsp = ref.hadamard_quant_ref(h, "mxfp4")
+    if not (torch.equal(hc, hcp) and torch.equal(hs, hsp)):
+        raise AssertionError("t3_quantize bytes differ from its plain "
+                             "version")
     return launches
 
 
@@ -473,16 +750,20 @@ def prefill_and_step(torch, transformer, params, cfg, qm, kv_quant, P, C,
 def teacher_forced(torch, ops, run, qm):
     """Run ``run(qm)`` with each kernel wrapper checked, call by call,
     against its plain version on the same inputs; raises on the first
-    disagreement, returns the worst error seen per kernel."""
+    disagreement, returns the worst error seen per kernel called."""
     from repro_torch.kernels import ref
     plain = {"mx_gemm_packed": ref.mx_matmul_packed_ref,
              "mx_flash_prefill": ref.mx_prefill_ref,
-             "mx_flash_decode_paged": ref.mx_attention_paged_ref}
+             "mx_flash_decode_paged": ref.mx_attention_paged_ref,
+             "mx_flash_decode": ref.mx_attention_ref}
     worst = {n: 0.0 for n in plain}
     saved = {n: getattr(ops, n) for n in plain}
 
+    seen = set()
+
     def checked(name):
         def call(*a, **k):
+            seen.add(name)
             out = saved[name](*a, **k)
             exp = plain[name](*a, **k)
             if name == "mx_flash_prefill":
@@ -511,7 +792,7 @@ def teacher_forced(torch, ops, run, qm):
     finally:
         for n, f in saved.items():
             setattr(ops, n, f)
-    return worst
+    return {n: e for n, e in worst.items() if n in seen}
 
 
 def main(argv=None) -> int:
@@ -539,12 +820,24 @@ def main(argv=None) -> int:
     card = card_facts(torch, build)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     entries = [check_gemm(torch, dev, gen), check_prefill(torch, dev, gen),
-               check_decode(torch, dev, gen)]
-    launches = end_to_end(torch, dev, args.seed)
+               check_decode(torch, dev, gen), check_flash_decode(torch, dev,
+                                                                 gen),
+               *check_quantizers(torch, dev, gen),
+               check_unpacked_gemm(torch, dev, gen)]
+    launches, params = end_to_end(torch, dev, args.seed)
+    launches["standalone"] = standalone_path(torch, dev, params)
+    # each kernel's launches on the path that carries it: the engine's
+    # default (wave, contiguous) for the GEMM and the contiguous decode,
+    # the paged run for the paged kernels, the standalone entry points
+    path_of = {"mx_gemm_packed": "wave", "mx_flash_decode": "wave",
+               "mx_flash_prefill": "paged", "mx_flash_decode_paged": "paged",
+               "mx_quantize": "standalone", "t3_quantize": "standalone",
+               "mx_gemm": "standalone"}
     for e in entries:
+        path = path_of[e["name"]]
         e.update(route="cuda", source=SOURCE[e["name"]],
-                 replaces=TPU_KERNEL[e["name"]],
-                 launches=launches[e["name"]])
+                 replaces=TPU_KERNEL[e["name"]], path=path,
+                 launches=launches[path][e["name"]])
     log(f"card: {card}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,180 @@
+#!/usr/bin/env python3
+"""Time two builds of the port's CUDA kernels back to back on one GPU.
+
+    python3 kernel_ab.py --other DIR [--this DIR] [--rounds 3]
+
+``DIR`` is the ``src/repro_torch/kernels/csrc`` of another checkout (for
+example the parent commit, unpacked with ``git archive`` into the
+git-ignored ``build/``); ``--this`` defaults to this checkout's. Every
+source both trees have (their C interfaces must agree) is compiled from
+each tree with the flags of ``kernels/build.py`` plus ``-Xptxas -v``,
+whose register and spill report is printed. Each kernel then runs
+through its ``ops`` wrapper on the same inputs as in ``chip_smoke.py`` (a
+wrapper's launch goes to whichever build is loaded), in the order other,
+this, this, other, ``--rounds`` times, so both builds see the same
+clocks. The last line is a JSON object with every time, in
+ms by CUDA events, and the largest difference between the two builds'
+outputs.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+SOURCES = {"mx_gemm_packed": "mx_gemm", "mx_flash_prefill": "mx_prefill",
+           "mx_flash_decode_paged": "mx_decode_paged",
+           "mx_flash_decode": "mx_decode", "mx_quant": "mx_quant",
+           "hadamard_quant": "mx_quant", "mx_gemm": "mx_matmul"}
+
+
+def compile_tree(build, csrc: pathlib.Path, tag: str) -> dict:
+    """{entry: C function} of the sources ``csrc`` has; prints ptxas's
+    report."""
+    out_dir = build.BUILD_DIR / "ab" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in sorted(set(SOURCES.values())):
+        if not (csrc / f"{src}.cu").exists():
+            continue
+        lib = out_dir / f"{src}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(lib), str(csrc / f"{src}.cu")]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      lib)
+    fns = {}
+    for src, (p, lib) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag} {src}.cu:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                cs.log(f"ptxas {tag} {src}: {line.split(':', 1)[-1].strip()}")
+    for entry, src in SOURCES.items():
+        if src not in procs:
+            continue
+        _, sym, argtypes = build._ENTRIES[entry]
+        fn = getattr(ctypes.CDLL(str(procs[src][1])), sym)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[entry] = fn
+    return fns
+
+
+def cases(torch, dev, gen):
+    """(label, entry, call) at chip_smoke.py's timed shapes."""
+    from repro_torch.kernels import ops, packing, ref
+    out = []
+    for M, K, N, t3 in ((4, 896, 4864, False), (4096, 896, 4864, False),
+                        (4096, 4864, 896, True)):
+        x = torch.randn(M, K, generator=gen, device=dev)
+        pw = packing.PackedWeight.from_dense(
+            torch.randn(K, N, generator=gen, device=dev) / K ** 0.5)
+        out.append((f"mx_gemm_packed M={M} K={K} N={N} t3={t3}",
+                    "mx_gemm_packed", 200 if M == 4 else 20,
+                    lambda x=x, pw=pw, t3=t3: ops.mx_gemm_packed(
+                        x, pw.codes_packed, pw.scales_e8m0, t3=t3)))
+    B, H, kvh, Dh, P, maxp = 4, 14, 2, 64, 1024, 2
+    D, n_pages = kvh * Dh, 1 + 4 * maxp
+    kv_len = [1330, 1180, 250, 140]
+    bt = cs._tables(torch, dev, gen, B, maxp, n_pages, kv_len, P)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, Dh, generator=gen, device=dev)
+    kc, ks, vc, vs = cs._paged_pool(torch, dev, gen, n_pages, P, D, "mxfp8")
+    out.append((f"mx_flash_decode_paged B={B} kv_len={kv_len} mxfp8",
+                "mx_flash_decode_paged", 200,
+                lambda: ops.mx_flash_decode_paged(q, kc, ks, vc, vs, bt,
+                                                  kl - 1, kl, "mxfp8")))
+    C, starts = 1024, [0, 1024, 0, 0]
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    bt2 = cs._tables(torch, dev, gen, B, maxp, n_pages,
+                     [s + C for s in starts], P)
+    q2 = torch.randn(B, C, H, Dh, generator=gen, device=dev)
+    kd = torch.randn(B, C, D, generator=gen, device=dev)
+    vd = torch.randn(B, C, D, generator=gen, device=dev)
+    out.append((f"mx_flash_prefill B={B} C={C} q_start={starts} mxfp8",
+                "mx_flash_prefill", 5,
+                lambda: ops.mx_flash_prefill(q2, kd, vd, kc, ks, vc, vs, bt2,
+                                             st, st + C, "mxfp8")[0]))
+    S = 2048
+    ck, sk = packing.kv_encode(torch.randn(B, S, D, generator=gen,
+                                           device=dev), "mxfp8")
+    cv, sv = packing.kv_encode(torch.randn(B, S, D, generator=gen,
+                                           device=dev), "mxfp8")
+    out.append((f"mx_flash_decode B={B} S={S} kv_len={kv_len} mxfp8",
+                "mx_flash_decode", 200,
+                lambda: ops.mx_flash_decode(q, ck, sk, cv, sv, kl - 1, kl,
+                                            "mxfp8")))
+    xq = cs._spread(torch, gen, dev, 4096, 4864)
+    for entry, fn in (("mx_quant", ops.mx_quantize),
+                      ("hadamard_quant", ops.t3_quantize)):
+        out.append((f"{entry} M=4096 K=4864 mxfp4", entry, 20,
+                    lambda fn=fn: fn(xq, "mxfp4")[0]))
+    w = torch.randn(896, 4864, generator=gen, device=dev) / 896 ** 0.5
+    wc, ws = ref.mx_quant_ref(w.T.contiguous(), "mxfp4")
+    wc, ws = wc.T.contiguous(), ws.T.contiguous()
+    for M in (4, 4096):
+        x = torch.randn(M, 896, generator=gen, device=dev)
+        out.append((f"mx_gemm M={M} K=896 N=4864 mxfp4", "mx_gemm",
+                    200 if M == 4 else 20,
+                    lambda x=x: ops.mx_gemm(x, wc, ws, "mxfp4")))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", required=True, type=pathlib.Path,
+                    help="another checkout's src/repro_torch/kernels/csrc")
+    ap.add_argument("--this", type=pathlib.Path, default=None,
+                    help="the csrc to hold against it (default: this "
+                         "checkout's)")
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab.py: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(cs.ROOT / "src"))
+    from repro_torch.kernels import build
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cs.log(f"card: {card}")
+    builds = {"other": compile_tree(build, args.other.resolve(), "other"),
+              "this": compile_tree(build, (args.this or build.CSRC).resolve(),
+                                   "this")}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    result = {"card": card, "other": str(args.other),
+              "this": str(args.this or build.CSRC), "kernels": []}
+    for label, entry, iters, call in cases(torch, dev, gen):
+        if not all(entry in b for b in builds.values()):
+            continue
+        times, outs = {"other": [], "this": []}, {}
+        for _ in range(args.rounds):
+            for tag in ("other", "this", "this", "other"):
+                build._libs[entry] = builds[tag][entry]
+                times[tag].append(cs.cuda_ms(torch, call, iters))
+                outs[tag] = call()
+        torch.cuda.synchronize()
+        diff = (outs["this"].float()
+                - outs["other"].float()).abs().max().item()
+        mean = {t: sum(v) / len(v) for t, v in times.items()}
+        cs.log(f"{label}: other {mean['other']:.4f} ms, this "
+               f"{mean['this']:.4f} ms ({mean['this'] / mean['other']:.3f}x), "
+               f"max |this - other| {diff:.3e}")
+        result["kernels"].append({"case": label, "ms": times,
+                                  "mean_ms": mean, "max_abs_diff": diff})
+    build._libs.clear()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,8 +7,8 @@ a plain C interface (no PyTorch headers, so ``nvcc`` takes seconds):
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The libraries land in ``build/kernels/`` at the repository root, named by
-a hash of their sources, so an edited source rebuilds and an unchanged one
-loads. :func:`build_all` starts one ``nvcc`` per source, all at once.
+a hash of the source and every shared header (``csrc/*.cuh``), so an edited
+source rebuilds and an unchanged one loads. :func:`build_all` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -24,7 +24,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mx_gemm", "mx_decode_paged", "mx_prefill")
+SOURCES = ("mx_gemm", "mx_matmul", "mx_quant", "mx_decode", "mx_decode_paged",
+           "mx_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "mx_common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -81,23 +82,33 @@ def build_all(names=SOURCES) -> dict:
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "mx_gemm": ("mx_gemm_packed_launch", [_C] * 5 + [_I] * 5 + [_C]),
-    "mx_decode_paged": ("mx_flash_decode_paged_launch",
-                        [_C] * 9 + [_I] * 8 + [_C]),
-    "mx_prefill": ("mx_flash_prefill_launch", [_C] * 15 + [_I] * 9 + [_C]),
+# entry point -> (source, C symbol, argument types)
+_ENTRIES = {
+    "mx_gemm_packed": ("mx_gemm", "mx_gemm_packed_launch",
+                       [_C] * 5 + [_I] * 5 + [_C]),
+    "mx_gemm": ("mx_matmul", "mx_gemm_launch", [_C] * 5 + [_I] * 4 + [_C]),
+    "mx_quant": ("mx_quant", "mx_quant_launch", [_C] * 3 + [_I] * 3 + [_C]),
+    "hadamard_quant": ("mx_quant", "hadamard_quant_launch",
+                       [_C] * 3 + [_I] * 3 + [_C]),
+    "mx_flash_decode": ("mx_decode", "mx_flash_decode_launch",
+                        [_C] * 8 + [_I] * 7 + [_C]),
+    "mx_flash_decode_paged": ("mx_decode_paged",
+                              "mx_flash_decode_paged_launch",
+                              [_C] * 9 + [_I] * 8 + [_C]),
+    "mx_flash_prefill": ("mx_prefill", "mx_flash_prefill_launch",
+                         [_C] * 15 + [_I] * 9 + [_C]),
 }
 
 
-def kernel(name: str):
-    """The C entry point of ``csrc/<name>.cu`` (built and loaded once)."""
+def kernel(entry: str):
+    """The C entry point ``entry`` (built from its source and loaded once)."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _libs.get(entry)
         if fn is None:
-            path = build_all((name,))[name]
-            sym, argtypes = _SIGNATURES[name]
+            src, sym, argtypes = _ENTRIES[entry]
+            path = build_all((src,))[src]
             fn = getattr(ctypes.CDLL(str(path)), sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = fn
+            _libs[entry] = fn
         return fn

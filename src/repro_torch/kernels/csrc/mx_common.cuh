@@ -1,7 +1,9 @@
-// Shared MX device functions for the Hopper kernels of the serving path.
+// Shared MX device functions for the Hopper kernels of the port.
 //
 // Ports the Pallas tile helpers of the JAX package:
-//   * the quantize snap of ``_quant_tile`` (src/repro/kernels/mx_quant.py:47-59),
+//   * the quantize snap of ``_quant_tile`` (src/repro/kernels/mx_quant.py:47-59)
+//     and the T3 rotation of ``_rotate_tile`` (hadamard_quant.py:25), as one
+//     per-32-block encode (``mx_encode_block``) that every kernel calls,
 //   * the code decodes (``_decode_tile``, mx_quant.py:34, and the arithmetic
 //     fp8 / int8 decode of ``_decode_codes``, mx_attention.py:80-105),
 //   * the E8M0 scale-byte conversions (packing.py:67-74).
@@ -17,13 +19,25 @@
 #include <stdint.h>
 
 // Element formats, in the order of the Python side (kernels/ops.py _FMT).
-enum MxFmt { FMT_FP4 = 0, FMT_INT4 = 1, FMT_FP8 = 2, FMT_INT8 = 3 };
+// FP6 (E2M3) codes are stored one per byte; only the standalone quantizer
+// and the unpacked GEMM take it. The packed layouts (the KV cache, nibble
+// weights, the packed GEMM's activations) hold the other four, so every
+// format helper below takes the set as a template flag ``kFp6`` (default
+// off) and the packed kernels' format switches carry no FP6 arm: with one,
+// ptxas spilled the paged flash-decode (80 registers instead of 95), which
+// ran 7% slower, and the paged flash-prefill 6% (kernel_ab.py, H100).
+enum MxFmt { FMT_FP4 = 0, FMT_INT4 = 1, FMT_FP8 = 2, FMT_INT8 = 3, FMT_FP6 = 4 };
 
-__host__ __device__ inline int fmt_bits(int f) { return f <= FMT_INT4 ? 4 : 8; }
+template <bool kFp6 = false>
+__host__ __device__ inline int fmt_bits(int f) {
+  return f <= FMT_INT4 ? 4 : (kFp6 && f == FMT_FP6 ? 6 : 8);
+}
 
 // Code that decodes to 0.0 (= index of 0 in the full symmetric grid).
+template <bool kFp6 = false>
 __host__ __device__ inline int fmt_center(int f) {
-  return f == FMT_FP8 ? 126 : (f == FMT_INT8 ? 127 : 7);
+  return f == FMT_FP8 ? 126
+                      : (f == FMT_INT8 ? 127 : (kFp6 && f == FMT_FP6 ? 31 : 7));
 }
 
 // Largest power-of-two exponent of the grid (Eq. 1's r_max).
@@ -32,11 +46,14 @@ __host__ __device__ inline int fmt_rmax(int f) {
 }
 
 // Number of magnitudes in the positive half-grid.
+template <bool kFp6 = false>
 __host__ __device__ inline int fmt_ngrid(int f) {
-  return f == FMT_FP8 ? 127 : (f == FMT_INT8 ? 128 : 8);
+  return f == FMT_FP8 ? 127
+                      : (f == FMT_INT8 ? 128 : (kFp6 && f == FMT_FP6 ? 32 : 8));
 }
 
 // Magnitude of half-grid index k. Every value is exact in f32 (and bf16).
+template <bool kFp6 = false>
 __device__ __forceinline__ float grid_value(int fmt, int k) {
   switch (fmt) {
     case FMT_FP4:  // 0, .5, 1, 1.5, 2, 3, 4, 6
@@ -45,15 +62,22 @@ __device__ __forceinline__ float grid_value(int fmt, int k) {
     case FMT_FP8:  // subnormals k * 2^-9, normals (8 + m) * 2^(e - 10)
       if (k < 8) return ldexpf((float)k, -9);
       return ldexpf((float)(8 + ((k - 8) & 7)), (k - 8) / 8 + 1 - 10);
+    case FMT_FP6:  // subnormals k * 2^-3, normals (8 + m) * 2^(e - 3)
+      if (kFp6) {
+        if (k < 8) return ldexpf((float)k, -3);
+        return ldexpf((float)(8 + ((k - 8) & 7)), (k - 8) / 8 - 3);
+      }
+      return (float)k;
     default:       // int4 / int8: the value is the index
       return (float)k;
   }
 }
 
 // Symmetric code -> element value (before the block scale).
+template <bool kFp6 = false>
 __device__ __forceinline__ float decode_code(int fmt, int code) {
-  int rel = code - fmt_center(fmt);
-  float v = grid_value(fmt, rel < 0 ? -rel : rel);
+  int rel = code - fmt_center<kFp6>(fmt);
+  float v = grid_value<kFp6>(fmt, rel < 0 ? -rel : rel);
   return rel < 0 ? -v : v;
 }
 
@@ -65,11 +89,12 @@ __device__ __forceinline__ float e8m0_scale(int b) {
 // Half-grid index of |z|: the number of grid midpoints m with m <= mag
 // (searchsorted side='right' over the f32 midpoints; ties go to the larger
 // magnitude, as the Pallas tile's ``mag >= m`` compares do).
+template <bool kFp6 = false>
 __device__ __forceinline__ int snap_index(int fmt, float mag) {
-  int lo = 0, hi = fmt_ngrid(fmt) - 1;  // hi = number of midpoints
+  int lo = 0, hi = fmt_ngrid<kFp6>(fmt) - 1;  // hi = number of midpoints
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    float m = (grid_value(fmt, mid) + grid_value(fmt, mid + 1)) * 0.5f;
+    float m = (grid_value<kFp6>(fmt, mid) + grid_value<kFp6>(fmt, mid + 1)) * 0.5f;
     if (m <= mag) lo = mid + 1; else hi = mid;
   }
   return lo;
@@ -81,10 +106,45 @@ __device__ __forceinline__ int block_scale_exp(int fmt, float amax) {
 }
 
 // Quantize one element of a block with scale 2^sexp -> symmetric code.
+template <bool kFp6 = false>
 __device__ __forceinline__ int quant_code(int fmt, float x, float scale) {
   float z = __fdiv_rn(x, scale);
-  int idx = snap_index(fmt, fabsf(z));
-  return fmt_center(fmt) + (z < 0.0f ? -idx : idx);
+  int idx = snap_index<kFp6>(fmt, fabsf(z));
+  return fmt_center<kFp6>(fmt) + (z < 0.0f ? -idx : idx);
+}
+
+// Encode one 32-block in place of the Pallas tile bodies: with ``t3`` the
+// block is first rotated by the Sylvester-ordered Hadamard H32 (entries
+// +-f32(1/sqrt(32)); y_c = sum_b v_b H[b][c], products exact in f64, one
+// rounding to f32 at the end — the plain versions' definition, so the snap
+// of a value near a grid midpoint does not depend on a summation order).
+// Then amax, the block exponent and the snap. On return ``v`` holds the
+// (rotated) block, ``code`` its symmetric codes; returns the scale exponent.
+template <bool kFp6 = false>
+__device__ __forceinline__ int mx_encode_block(int fmt, float (&v)[32],
+                                               bool t3, int (&code)[32]) {
+  if (t3) {
+    const double h = (double)(float)(1.0 / sqrt(32.0));
+    float y[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      double acc = 0.0;
+#pragma unroll
+      for (int b = 0; b < 32; ++b)
+        acc = fma((double)v[b], (__popc(b & c) & 1) ? -h : h, acc);
+      y[c] = (float)acc;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = y[i];
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  const int sexp = block_scale_exp(fmt, amax);
+  const float scale = ldexpf(1.0f, sexp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) code[i] = quant_code<kFp6>(fmt, v[i], scale);
+  return sexp;
 }
 
 // E8M0 byte of a block scale 2^sexp (round(log2(scale)) + 127).

@@ -18,8 +18,8 @@
 // a split or a tolerance) is the later step.
 //
 // Design (simple first): pass 1 encodes the chunk, one thread per 32-block
-// (the ``_quant_tile`` snap + E8M0 byte + nibble order), and writes the byte
-// outputs — exactly one writer per chunk row. Pass 2 attends: one block per
+// (``mx_encode_block``, then the E8M0 byte and the nibble order), and writes
+// the byte outputs — exactly one writer per chunk row. Pass 2 attends: one block per
 // (query tile of up to 64 / G rows, KV head, lane) walks the committed
 // prefix through the block table (pool rows valid iff kp < q_start, so a
 // mid-page resume never counts a row twice), then the chunk rows decoded
@@ -45,22 +45,20 @@ __global__ void kv_quant_kernel(const float* __restrict__ x,
   if (blk >= nblk) return;
   const float* src = x + blk * 32;
   float v[32];
-  float amax = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) { v[i] = src[i]; amax = fmaxf(amax, fabsf(v[i])); }
-  const int sexp = block_scale_exp(fmt, amax);
-  const float scale = ldexpf(1.0f, sexp);
+  for (int i = 0; i < 32; ++i) v[i] = src[i];
+  int code[32];
+  const int sexp = mx_encode_block(fmt, v, false, code);
   scales[blk] = e8m0_byte(sexp);
   if (fmt_bits(fmt) == 8) {
     uint8_t* dst = codes + blk * 32;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dst[i] = (uint8_t)quant_code(fmt, v[i], scale);
+    for (int i = 0; i < 32; ++i) dst[i] = (uint8_t)code[i];
   } else {
     uint8_t* dst = codes + blk * 16;
 #pragma unroll
     for (int i = 0; i < 16; ++i)
-      dst[i] = (uint8_t)(quant_code(fmt, v[2 * i], scale) |
-                         (quant_code(fmt, v[2 * i + 1], scale) << 4));
+      dst[i] = (uint8_t)(code[2 * i] | (code[2 * i + 1] << 4));
   }
 }
 

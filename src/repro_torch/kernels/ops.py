@@ -15,13 +15,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import mx as _mx
+
 from . import build, packing as _pk, ref
 
-# element-format ids shared with csrc/mx_common.cuh (enum MxFmt)
-_FMT = {"mxfp4": 0, "mxint4": 1, "mxfp8": 2, "mxint8": 3}
+# element-format ids shared with csrc/mx_common.cuh (enum MxFmt), keyed by
+# the element format's name so both spellings ('mxfp4', 'fp4_e2m1') resolve
+_FMT_IDS = {"fp4_e2m1": 0, "int4": 1, "fp8_e4m3": 2, "int8": 3, "fp6_e2m3": 4}
 
 launches = {"mx_gemm_packed": 0, "mx_flash_decode_paged": 0,
-            "mx_flash_prefill": 0}
+            "mx_flash_prefill": 0, "mx_flash_decode": 0, "mx_quantize": 0,
+            "t3_quantize": 0, "mx_gemm": 0}
+
+
+def _fmt_id(fmt: str) -> int:
+    return _FMT_IDS[_mx.FORMATS[fmt].name]
 
 
 def reset_launches() -> None:
@@ -61,6 +69,94 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _lane_vec(v, B: int, device) -> torch.Tensor:
+    """Per-lane int32 vector (B,) of a scalar or (B,) ``v`` on ``device``."""
+    return torch.as_tensor(v, device=device).to(torch.int32).reshape(
+        -1).expand(B).contiguous()
+
+
+# ----------------------------------------------------------------------
+# Standalone MX quantizers and the unpacked-layout GEMM
+# ----------------------------------------------------------------------
+
+def _quant_contract(x, fmt: str, name: str) -> None:
+    if (x.ndim != 2 or x.shape[1] % 32 != 0 or x.shape[1] == 0
+            or fmt not in _mx.FORMATS):
+        raise ValueError(
+            f"{name} contract violation: x {tuple(x.shape)}, fmt={fmt!r}. "
+            f"Expected x (M, K) with K a positive multiple of 32 and fmt "
+            f"one of {sorted(_mx.FORMATS)}.")
+
+
+def _quantize(x, fmt: str, t3: bool):
+    name = "t3_quantize" if t3 else "mx_quantize"
+    _quant_contract(x, fmt, name)
+    if not _on_card(x):
+        xf = x.float()
+        return (ref.hadamard_quant_ref(xf, fmt) if t3
+                else ref.mx_quant_ref(xf, fmt))
+    M, K = x.shape
+    xf = _aligned(x, torch.float32)
+    codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((M, K // 32), dtype=torch.float32, device=x.device)
+    rc = build.kernel("hadamard_quant" if t3 else "mx_quant")(
+        _ptr(xf), _ptr(codes), _ptr(scales), M, K, _fmt_id(fmt), _stream())
+    _check(rc, name)
+    launches[name] += 1
+    return codes, scales
+
+
+def mx_quantize(x, fmt: str = "mxfp4"):
+    """MX-encode x (M, K) float, K % 32 == 0, per 32-block along K: returns
+    (codes uint8 (M, K), one symmetric code per byte; scales float32
+    (M, K//32), powers of two). Every MX format (mxfp4, mxint4, mxfp6,
+    mxfp8, mxint8)."""
+    return _quantize(x, fmt, False)
+
+
+def t3_quantize(x, fmt: str = "mxfp4"):
+    """The online T3: rotate each 32-block of x (M, K) by the Hadamard H32,
+    then MX-encode as :func:`mx_quantize` — (codes uint8 (M, K), scales
+    float32 (M, K//32))."""
+    return _quantize(x, fmt, True)
+
+
+def mx_gemm(x, w_codes, w_scales, fmt: str = "mxfp4") -> torch.Tensor:
+    """Fused MX GEMM over the unpacked weight layout: y = Q_mx(x) @
+    deq(w), f32 out.
+
+    x (M, K) float, quantized per row in 32-blocks to ``fmt``; w_codes
+    (K, N) uint8, one code per byte; w_scales (K//32, N) float32 (the
+    ``mx_quantize`` layout of w transposed). K % 32 == 0; every MX
+    format."""
+    if (x.ndim != 2 or w_codes.ndim != 2 or w_scales.ndim != 2
+            or x.shape[1] != w_codes.shape[0] or x.shape[1] % 32 != 0
+            or tuple(w_scales.shape) != (x.shape[1] // 32, w_codes.shape[1])
+            or w_codes.dtype != torch.uint8 or not w_scales.is_floating_point()
+            or fmt not in _mx.FORMATS):
+        raise ValueError(
+            f"mx_gemm contract violation: x {tuple(x.shape)}, w_codes "
+            f"{tuple(w_codes.shape)} {w_codes.dtype}, w_scales "
+            f"{tuple(w_scales.shape)} {w_scales.dtype}, fmt={fmt!r}. "
+            f"Expected x (M, K), uint8 w_codes (K, N) and float w_scales "
+            f"(K//32, N) with K % 32 == 0; fmt one of "
+            f"{sorted(_mx.FORMATS)}.")
+    if not _on_card(x, w_codes, w_scales):
+        return ref.mx_matmul_ref(x, w_codes, w_scales.float(), fmt)
+    M, K = x.shape
+    N = w_codes.shape[1]
+    xf = _aligned(x, torch.float32)
+    wc = w_codes.contiguous()
+    ws = w_scales.float().contiguous()
+    xq = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = build.kernel("mx_gemm")(_ptr(xf), _ptr(xq), _ptr(wc), _ptr(ws),
+                                 _ptr(y), M, N, K, _fmt_id(fmt), _stream())
+    _check(rc, "mx_gemm")
+    launches["mx_gemm"] += 1
+    return y
+
+
 # ----------------------------------------------------------------------
 # Packed-native fused MX GEMM
 # ----------------------------------------------------------------------
@@ -95,9 +191,9 @@ def _gemm_2d(x, w_packed, w_scales_e8m0, fmt, t3):
     ws = w_scales_e8m0.contiguous()
     xq = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    rc = build.kernel("mx_gemm")(_ptr(x), _ptr(xq), _ptr(wp), _ptr(ws),
-                                 _ptr(y), M, N, K, _FMT[fmt], int(t3),
-                                 _stream())
+    rc = build.kernel("mx_gemm_packed")(_ptr(x), _ptr(xq), _ptr(wp),
+                                        _ptr(ws), _ptr(y), M, N, K,
+                                        _fmt_id(fmt), int(t3), _stream())
     _check(rc, "mx_gemm_packed")
     launches["mx_gemm_packed"] += 1
     return y
@@ -128,6 +224,72 @@ def mx_gemm_packed(x, w_packed, w_scales_e8m0, fmt: str = "mxfp4",
 
 
 # ----------------------------------------------------------------------
+# Flash decode over the contiguous packed cache
+# ----------------------------------------------------------------------
+
+def _flash_decode_contract(q, k_codes, k_scales, v_codes, v_scales,
+                           fmt: str) -> bool:
+    """Does the packed KV meet the flash-decode kernel contract?"""
+    if fmt not in _pk.KV_FMTS:
+        return False
+    if q.ndim != 3 or k_codes.ndim != 3 or k_scales.ndim != 3:
+        return False
+    B, H, Dh = q.shape
+    bits = _pk.kv_fmt_bits(fmt)
+    D = k_codes.shape[2] * 8 // bits
+    if D % 32 != 0 or Dh == 0 or D % Dh != 0 or H % (D // Dh) != 0:
+        return False
+    return (k_codes.shape[0] == B
+            and tuple(k_scales.shape) == (B, k_codes.shape[1], D // 32)
+            and v_codes.shape == k_codes.shape
+            and v_scales.shape == k_scales.shape)
+
+
+def mx_flash_decode(q, k_codes, k_scales, v_codes, v_scales, q_pos, kv_len,
+                    fmt: str = "mxfp8", window: int = 0) -> torch.Tensor:
+    """Flash-decode attention over a contiguous packed MX KV cache.
+
+    q (B, H, Dh) float — one decode token per lane; k/v_codes (B, S,
+    D*bits/8) uint8 and k/v_scales (B, S, D//32) uint8 E8M0 bytes — the
+    ``PackedKV`` layout (D = n_kv_heads * Dh); q_pos / kv_len (B,) int32
+    (scalars broadcast). Keys are contiguous from position 0. Returns
+    (B, H, Dh) float32. ``window`` > 0 masks keys at ``pos <= q_pos -
+    window``. The plain version attends the cache as one block (the
+    Pallas kernel's default under interpret mode)."""
+    if not _flash_decode_contract(q, k_codes, k_scales, v_codes, v_scales,
+                                  fmt):
+        raise ValueError(
+            f"mx_flash_decode contract violation: q {tuple(q.shape)}, "
+            f"k_codes {tuple(k_codes.shape)}, k_scales "
+            f"{tuple(k_scales.shape)}, v_codes {tuple(v_codes.shape)}, "
+            f"v_scales {tuple(v_scales.shape)}, fmt={fmt!r}. Expected q "
+            f"(B, H, Dh); codes (B, S, D*bits/8) with D % 32 == 0, "
+            f"D % Dh == 0 and H divisible by the kv-head count D/Dh; "
+            f"scales (B, S, D//32); V shapes matching K; fmt one of "
+            f"{_pk.KV_FMTS}.")
+    if not _on_card(q, k_codes, k_scales, v_codes, v_scales):
+        return ref.mx_attention_ref(q, k_codes, k_scales, v_codes, v_scales,
+                                    q_pos, kv_len, fmt, window)
+    B, H, Dh = q.shape
+    S = k_codes.shape[1]
+    D = k_scales.shape[2] * 32
+    dev = q.device
+    qf = q.float().contiguous()
+    qp = _lane_vec(q_pos, B, dev)
+    kl = _lane_vec(kv_len, B, dev)
+    kc, ks, vc, vs = (t.contiguous() for t in (k_codes, k_scales, v_codes,
+                                                v_scales))
+    out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
+    rc = build.kernel("mx_flash_decode")(
+        _ptr(qf), _ptr(kc), _ptr(ks), _ptr(vc), _ptr(vs), _ptr(qp),
+        _ptr(kl), _ptr(out), B, H, Dh, D, S, _fmt_id(fmt), int(window),
+        _stream())
+    _check(rc, "mx_flash_decode")
+    launches["mx_flash_decode"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
 # Paged flash decode
 # ----------------------------------------------------------------------
 
@@ -149,11 +311,6 @@ def _flash_decode_paged_contract(q, k_codes, k_scales, v_codes, v_scales,
             and tuple(k_scales.shape) == (N, P, D // 32)
             and v_codes.shape == k_codes.shape
             and v_scales.shape == k_scales.shape)
-
-
-def _lane_vec(v, B: int, device) -> torch.Tensor:
-    return torch.as_tensor(v, device=device).to(torch.int32).reshape(
-        -1).expand(B).contiguous()
 
 
 def mx_flash_decode_paged(q, k_codes, k_scales, v_codes, v_scales,
@@ -195,10 +352,10 @@ def mx_flash_decode_paged(q, k_codes, k_scales, v_codes, v_scales,
     kc, ks, vc, vs = (t.contiguous() for t in (k_codes, k_scales, v_codes,
                                                 v_scales))
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
-    rc = build.kernel("mx_decode_paged")(
+    rc = build.kernel("mx_flash_decode_paged")(
         _ptr(qf), _ptr(kc), _ptr(ks), _ptr(vc), _ptr(vs), _ptr(bt),
         _ptr(qp), _ptr(kl), _ptr(out), B, H, Dh, D, P, bt.shape[1],
-        _FMT[fmt], int(window), _stream())
+        _fmt_id(fmt), int(window), _stream())
     _check(rc, "mx_flash_decode_paged")
     launches["mx_flash_decode_paged"] += 1
     return out
@@ -283,11 +440,11 @@ def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
     ks = torch.empty((B, C, D // 32), dtype=torch.uint8, device=dev)
     vc = torch.empty_like(kc)
     vs = torch.empty_like(ks)
-    rc = build.kernel("mx_prefill")(
+    rc = build.kernel("mx_flash_prefill")(
         _ptr(qf), _ptr(kd), _ptr(vd), _ptr(kcp), _ptr(ksp), _ptr(vcp),
         _ptr(vsp), _ptr(bt), _ptr(st), _ptr(kl), _ptr(out), _ptr(kc),
         _ptr(ks), _ptr(vc), _ptr(vs), B, C, H, Dh, D, P, bt.shape[1],
-        _FMT[fmt], int(window), _stream())
+        _fmt_id(fmt), int(window), _stream())
     _check(rc, "mx_flash_prefill")
     launches["mx_flash_prefill"] += 1
     return out, kc, ks, vc, vs

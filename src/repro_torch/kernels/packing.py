@@ -5,9 +5,10 @@ Weights pack along the contraction axis (-2): ``codes_packed (*lead, K//2,
 N)`` with code 2i in the low nibble of byte i, plus ``scales_e8m0 (*lead,
 K//32, N)``. The KV cache packs along its feature axis (-1): one code per
 byte for 8-bit formats, nibble-packed for 4-bit ones, plus one E8M0 byte
-per 32-block. A ``PagedKV`` pool is ``(*lead, N, P, D*bits/8)`` codes and
-``(*lead, N, P, D//32)`` scales; position t of a request lives at page
-``block_table[t // P]``, row ``t % P``.
+per 32-block. A contiguous ``PackedKV`` cache is ``(*lead, S, D*bits/8)``
+codes and ``(*lead, S, D//32)`` scales. A ``PagedKV`` pool is ``(*lead, N,
+P, D*bits/8)`` codes and ``(*lead, N, P, D//32)`` scales; position t of a
+request lives at page ``block_table[t // P]``, row ``t % P``.
 """
 from __future__ import annotations
 
@@ -192,6 +193,77 @@ def kv_decode(codes: torch.Tensor, scales_e8m0: torch.Tensor,
                         mxlib.MXConfig(fmt=fmt, block_size=32), dtype)
 
 
+def _kv_fill_bytes(fmt: str) -> tuple:
+    """(code byte, scale byte) of a fresh cache row: center codes, which
+    decode to 0.0 (nibble-doubled for 4-bit formats), and unit scales."""
+    center = _kv_center(fmt)
+    return (center | (center << 4) if kv_fmt_bits(fmt) == 4 else center,
+            127)
+
+
+@dataclasses.dataclass
+class PackedKV:
+    """An MX-quantized contiguous KV-cache tensor: ``codes`` (*lead, S,
+    D*bits/8) uint8 — one code per byte (8-bit formats) or nibble-packed
+    (4-bit formats) along the feature axis — and ``scales`` (*lead, S,
+    D//32) uint8 E8M0 bytes. The port's writes (``kv_write_rows`` /
+    ``kv_write_slice``) update the tensors in place, where the JAX package
+    returns new arrays."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+    fmt: str = "mxfp8"
+    dtype: str = "float32"
+
+    @property
+    def shape(self):
+        """Logical dense shape (*lead, S, D)."""
+        *lead, s, db = self.codes.shape
+        return tuple(lead) + (s, db * 8 // kv_fmt_bits(self.fmt))
+
+    @property
+    def ndim(self) -> int:
+        return self.codes.ndim
+
+    def __getitem__(self, i) -> "PackedKV":
+        """Slice the leading axes (a view: writes reach the stacked cache)."""
+        return PackedKV(self.codes[i], self.scales[i], self.fmt, self.dtype)
+
+    def to(self, device) -> "PackedKV":
+        return PackedKV(self.codes.to(device), self.scales.to(device),
+                        self.fmt, self.dtype)
+
+    def to_dense(self, dtype=None) -> torch.Tensor:
+        return kv_decode(self.codes, self.scales, self.fmt,
+                         torch_dtype(dtype if dtype is not None
+                                     else self.dtype))
+
+    @classmethod
+    def from_dense(cls, x: torch.Tensor, fmt: str = "mxfp8") -> "PackedKV":
+        c, s = kv_encode(x, fmt)
+        return cls(c, s, fmt, str(x.dtype).replace("torch.", ""))
+
+    @classmethod
+    def zeros(cls, shape, fmt: str = "mxfp8", dtype=torch.float32,
+              device=None) -> "PackedKV":
+        """Fresh cache of logical dense ``shape`` (*lead, S, D): center
+        codes (which decode to 0.0) and unit E8M0 scales; on the card
+        unless ``device`` says otherwise."""
+        from repro_torch import devices
+        device = devices.resolve(device)
+        *lead, d = shape
+        bits = kv_fmt_bits(fmt)
+        if d % 32 != 0:
+            raise ValueError(f"KV feature dim {d} not divisible by 32")
+        cbyte, sbyte = _kv_fill_bytes(fmt)
+        codes = torch.full((*lead, d * bits // 8), cbyte, dtype=torch.uint8,
+                           device=device)
+        scales = torch.full((*lead, d // 32), sbyte, dtype=torch.uint8,
+                            device=device)
+        return cls(codes, scales, fmt,
+                   str(torch_dtype(dtype)).replace("torch.", ""))
+
+
 @dataclasses.dataclass
 class PagedKV:
     """A paged KV pool: ``codes`` (*lead, N, P, D*bits/8) uint8 and
@@ -242,11 +314,10 @@ class PagedKV:
         bits = kv_fmt_bits(fmt)
         if d % 32 != 0:
             raise ValueError(f"KV feature dim {d} not divisible by 32")
-        center = _kv_center(fmt)
-        cbyte = center | (center << 4) if bits == 4 else center
+        cbyte, sbyte = _kv_fill_bytes(fmt)
         codes = torch.full((*lead, n, p, d * bits // 8), cbyte,
                            dtype=torch.uint8, device=device)
-        scales = torch.full((*lead, n, p, d // 32), 127, dtype=torch.uint8,
+        scales = torch.full((*lead, n, p, d // 32), sbyte, dtype=torch.uint8,
                             device=device)
         return cls(codes, scales, fmt, dname)
 

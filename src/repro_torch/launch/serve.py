@@ -1,7 +1,7 @@
 """Serve a packed MX artifact with the port's engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
-        --backend fused --scheduler continuous --kv-layout paged \
+        --backend fused --scheduler wave --kv-layout contiguous \
         --kv-cache mxfp8 --requests 8 --prompt-len 64 --max-new 32
 
 Runs on the CUDA card (``--device cuda``, the default) or, when asked, on
@@ -22,9 +22,14 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="fused", choices=("ref", "fused"),
                     help="'fused' runs the packed weights and the quantized "
                          "KV pool through the CUDA kernels")
-    ap.add_argument("--scheduler", default="continuous",
-                    choices=("continuous",))
-    ap.add_argument("--kv-layout", default="paged", choices=("paged",))
+    ap.add_argument("--scheduler", default="wave",
+                    choices=("wave", "continuous"),
+                    help="'wave' = static batching; 'continuous' = lanes "
+                         "refilled by chunked prefill")
+    ap.add_argument("--kv-layout", default="contiguous",
+                    choices=("contiguous", "paged"),
+                    help="'paged' (continuous only) addresses a page pool "
+                         "through block tables with prefix caching")
     ap.add_argument("--kv-cache", default="mxfp8",
                     choices=("none", "mxfp8", "mxint8", "mxfp4", "mxint4"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))

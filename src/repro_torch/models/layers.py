@@ -1,11 +1,14 @@
 """Shared layers of the dense transformer: RMSNorm, RoPE, GQA attention
-(online softmax over KV chunks), the paged KV-cache writes and the gated
-MLP — the serving part of ``repro.models.layers``.
+(online softmax over KV chunks), the KV-cache writes of both layouts and
+the gated MLP — the serving part of ``repro.models.layers``.
 
-Paged-cache writes go through the block-table indirection: logical
-position t of lane b lives at pool page ``block_tables[b, t // P]``, row
-``t % P``. They update the layer-sliced pool in place (the engine
-guarantees writable pages are private to their lane)."""
+A contiguous cache leaf is a dense (B, S, kv_dim) tensor or a ``PackedKV``
+(MX codes + E8M0 bytes, quantized at append time). Paged-cache writes go
+through the block-table indirection: logical position t of lane b lives at
+pool page ``block_tables[b, t // P]``, row ``t % P``. Every write updates
+the (layer-sliced) cache in place, where the JAX package returns new
+arrays (the engine guarantees writable pages are private to their
+lane)."""
 from __future__ import annotations
 
 import functools
@@ -16,10 +19,43 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import QuantMode, qlinear
 from repro_torch.kernels import ops
-from repro_torch.kernels.packing import PagedKV, kv_encode
+from repro_torch.kernels.packing import PackedKV, PagedKV, kv_encode
 from repro_torch.kernels.ref import sm_scale
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Contiguous-cache writes
+# ---------------------------------------------------------------------------
+
+def kv_write_rows(cache, new: torch.Tensor, rows: torch.Tensor):
+    """Scatter one token per lane: lane b writes row ``rows[b]`` (the
+    continuous scheduler's per-lane positions). cache (B, S, kv_dim) dense
+    or ``PackedKV``; new (B, 1, kv_dim) dense."""
+    bidx = torch.arange(new.shape[0], device=new.device)
+    rows = torch.as_tensor(rows, device=new.device).long()
+    if isinstance(cache, PackedKV):
+        c, s = kv_encode(new, cache.fmt)
+        cache.codes[bidx, rows] = c[:, 0]
+        cache.scales[bidx, rows] = s[:, 0]
+        return cache
+    cache[bidx, rows] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def kv_write_slice(cache, new: torch.Tensor, start: int):
+    """Write ``new`` (B, C, kv_dim) at rows start..start+C-1 of every lane
+    (the wave scheduler's shared position, chunked prefill)."""
+    C = new.shape[1]
+    st = int(start)
+    if isinstance(cache, PackedKV):
+        c, s = kv_encode(new, cache.fmt)
+        cache.codes[:, st:st + C] = c
+        cache.scales[:, st:st + C] = s
+        return cache
+    cache[:, st:st + C] = new.to(cache.dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +123,11 @@ def kv_scatter_chunk_paged(pool: PagedKV, codes: torch.Tensor,
     return pool
 
 
-def kv_heads_view(c: torch.Tensor, kvh: int, dh: int) -> torch.Tensor:
-    """(B, S, kv_dim) cache leaf -> the (B, S, K, Dh) view attention takes."""
+def kv_heads_view(c, kvh: int, dh: int):
+    """(B, S, kv_dim) cache leaf -> the (B, S, K, Dh) view attention takes.
+    A ``PackedKV`` passes through: attention dispatches on it."""
+    if isinstance(c, PackedKV):
+        return c
     return c.reshape(c.shape[0], c.shape[1], kvh, dh)
 
 
@@ -157,14 +196,45 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
 # Attention — grouped-query, online softmax over KV chunks
 # ---------------------------------------------------------------------------
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, q_pos, k_start: int = 0, window: int = 0,
-              kv_len=None, chunk: int = 1024) -> torch.Tensor:
+def _attention_packed(q, k: PackedKV, v: PackedKV, *, causal, q_pos,
+                      k_start, window, kv_len, chunk, backend):
+    """Attention over a contiguous MX-packed cache. Under
+    ``backend='fused'`` the single-token decode contract (Sq == 1, causal,
+    keys from position 0, a known fill) runs ``ops.mx_flash_decode``;
+    everything else — chunked prefill, the 'ref' backend — decodes the
+    cache in place and runs the dense :func:`attention` on the same
+    values (the JAX package has no kernel there either)."""
+    B, Sq, H, Dh = q.shape
+    if (backend == "fused" and Sq == 1 and causal and k_start == 0
+            and kv_len is not None):
+        qp = torch.as_tensor(q_pos)
+        qpv = qp[:, 0] if qp.ndim == 2 else qp.reshape(-1)
+        out = ops.mx_flash_decode(
+            q.reshape(B, H, Dh), k.codes, k.scales, v.codes, v.scales, qpv,
+            torch.as_tensor(kv_len).reshape(-1), k.fmt, window=window)
+        return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    kvh = k.shape[-1] // Dh
+    kd = kv_heads_view(k.to_dense(), kvh, Dh)
+    vd = kv_heads_view(v.to_dense(), kvh, Dh)
+    return attention(q, kd, vd, causal=causal, q_pos=q_pos,
+                     k_start=k_start, window=window, kv_len=kv_len,
+                     chunk=chunk)
+
+
+def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
+              k_start: int = 0, window: int = 0, kv_len=None,
+              chunk: int = 1024, backend: str = "ref") -> torch.Tensor:
     """Memory-bounded attention. q (B, Sq, H, Dh); k, v (B, Sk, K, Dh)
-    with H % K == 0; q_pos (Sq,) shared or (B, Sq) per-row absolute
-    positions; k_start the position of k[:, 0]; window > 0 masks keys at
-    pos <= q_pos - window; kv_len masks key indices >= kv_len (a scalar or
-    a (B,) vector). Output (B, Sq, H, Dh)."""
+    with H % K == 0 — or ``PackedKV`` leaves of logical shape (B, Sk,
+    K*Dh), dispatched by :func:`_attention_packed`; q_pos (Sq,) shared or
+    (B, Sq) per-row absolute positions; k_start the position of k[:, 0];
+    window > 0 masks keys at pos <= q_pos - window; kv_len masks key
+    indices >= kv_len (a scalar or a (B,) vector). Output (B, Sq, H,
+    Dh)."""
+    if isinstance(k, PackedKV):
+        return _attention_packed(q, k, v, causal=causal, q_pos=q_pos,
+                                 k_start=k_start, window=window,
+                                 kv_len=kv_len, chunk=chunk, backend=backend)
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K

@@ -3,9 +3,10 @@ SwiGLU) — the serving part of ``repro.models.transformer``.
 
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``blocks/wq`` is ``(L, d, q_dim)``, a ``PackedWeight`` when served from an
-artifact); the layers run as a Python loop over the leading axis. The paged
-KV pool is ``{"k": PagedKV, "v": PagedKV}`` of ``(L, N, P, ·)`` and is
-updated in place.
+artifact); the layers run as a Python loop over the leading axis. The
+contiguous cache is ``{"k", "v"}`` of ``(L, B, S, kv_dim)`` dense tensors or
+``PackedKV``; the paged KV pool is ``{"k": PagedKV, "v": PagedKV}`` of
+``(L, N, P, ·)``. Both are updated in place.
 """
 from __future__ import annotations
 
@@ -13,13 +14,15 @@ import math
 
 import torch
 
+from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import QuantMode, qlinear
 from repro_torch.kernels import ops
-from repro_torch.kernels.packing import PagedKV
+from repro_torch.kernels.packing import PackedKV, PagedKV
 
 from .layers import (apply_rope, attention, attention_paged, dense_init,
-                     gated_mlp, kv_scatter_chunk_paged, kv_write_chunk_paged,
+                     gated_mlp, kv_heads_view, kv_scatter_chunk_paged,
+                     kv_write_chunk_paged, kv_write_rows, kv_write_slice,
                      kv_write_token_paged, rms_norm)
 
 
@@ -111,6 +114,60 @@ def attn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode, pos,
     return x + out, k, v
 
 
+def attn_sublayer_decode(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
+                         cache_v, cur_len, window: int = 0):
+    """One-token attention against a layer-sliced contiguous cache. x (B, 1,
+    d); cache_k/v (B, S, kv_dim) dense or ``PackedKV``. ``cur_len`` is an
+    int shared by the lanes (the wave scheduler: the new k/v land at row
+    cur_len of every lane) or a (B,) tensor of per-lane fills (the
+    continuous scheduler). Under the fused backend a packed cache is
+    attended by the flash-decode kernel."""
+    B = x.shape[0]
+    dev = x.device
+    if isinstance(cur_len, torch.Tensor) and cur_len.ndim == 1:
+        cl = cur_len.to(dev).long()
+        pos = cl[:, None]                                  # (B, 1)
+        q, k, v = _qkv(x, p, cfg, qm, pos)
+        kv_write_rows(cache_k, k, cl)
+        kv_write_rows(cache_v, v, cl)
+        kv_len = cl + 1
+    else:
+        cl = int(cur_len)
+        pos = torch.full((1,), cl, dtype=torch.long, device=dev)
+        q, k, v = _qkv(x, p, cfg, qm, pos)
+        kv_write_slice(cache_k, k, cl)
+        kv_write_slice(cache_v, v, cl)
+        kv_len = pos + 1
+    out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
+                    kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
+                    causal=True, q_pos=pos, kv_len=kv_len, window=window,
+                    chunk=cfg.attn_chunk, backend=qm.backend)
+    out = qlinear(out.reshape(B, 1, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
+def attn_sublayer_chunk(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
+                        cache_v, pos, kv_len, window: int = 0):
+    """Chunked-prefill attention against a layer-sliced contiguous cache:
+    C tokens at positions ``pos`` (C,), contiguous from pos[0], are written
+    at those rows, then attend the cache up to the fill ``kv_len`` (an int,
+    pos[-1] + 1). A packed cache is decoded in place (the chunk attends the
+    round trip of its own quantized rows)."""
+    B, C = x.shape[0], x.shape[1]
+    q, k, v = _qkv(x, p, cfg, qm, pos)
+    start = int(kv_len) - C
+    kv_write_slice(cache_k, k, start)
+    kv_write_slice(cache_v, v, start)
+    out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
+                    kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
+                    causal=True, q_pos=pos, kv_len=kv_len, window=window,
+                    chunk=cfg.attn_chunk, backend=qm.backend)
+    out = qlinear(out.reshape(B, C, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
 def attn_sublayer_decode_paged(x, p, cfg: ArchConfig, qm: QuantMode,
                                cache_k: PagedKV, cache_v: PagedKV,
                                block_tables, cur_len, window: int = 0):
@@ -179,7 +236,7 @@ def ffn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
 
 
 # ---------------------------------------------------------------------------
-# Forward / paged prefill / paged decode
+# Forward / caches / prefill / decode, contiguous and paged
 # ---------------------------------------------------------------------------
 
 def _embed(params, inputs):
@@ -199,14 +256,97 @@ def forward(params, cfg: ArchConfig, inputs,
     return head_out(x, params, cfg, qm)
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, kv_quant=None, device=None):
+    """The contiguous decode cache, (L, batch, max_len, kv_dim) per K and
+    V: ``PackedKV`` when ``kv_quant`` is given, dense ``dtype`` otherwise.
+    ``device`` None means the CUDA card."""
+    dev = devices.resolve(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_dim)
+    if kv_quant is not None:
+        return {"k": PackedKV.zeros(shape, kv_quant.fmt, dtype, dev),
+                "v": PackedKV.zeros(shape, kv_quant.fmt, dtype, dev)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 def init_cache_paged(cfg: ArchConfig, n_pages: int, page_size: int,
-                     dtype=torch.float32, kv_quant=None, device="cpu"):
+                     dtype=torch.float32, kv_quant=None, device=None):
     """A paged KV pool of N pages of P tokens per layer; MX-packed (codes +
-    E8M0 bytes) when ``kv_quant`` is given, dense ``dtype`` otherwise."""
+    E8M0 bytes) when ``kv_quant`` is given, dense ``dtype`` otherwise.
+    ``device`` None means the CUDA card."""
+    dev = devices.resolve(device)
     fmt = kv_quant.fmt if kv_quant is not None else "none"
     shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim)
-    return {"k": PagedKV.zeros(shape, fmt, dtype, device),
-            "v": PagedKV.zeros(shape, fmt, dtype, device)}
+    return {"k": PagedKV.zeros(shape, fmt, dtype, dev),
+            "v": PagedKV.zeros(shape, fmt, dtype, dev)}
+
+
+def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
+            max_len: int | None = None, kv_quant=None):
+    """Run the prompt (B, S) at positions 0..S-1 and return (last-position
+    logits (B, V), cache). ``max_len`` sizes the cache for the decode steps
+    that follow (rows past S are zeros); ``kv_quant`` stores it MX-packed —
+    ``PackedKV.from_dense`` of the padded cache, so the prompt attends its
+    own dense k/v and quantization applies to what decode reads back."""
+    x = _embed(params, inputs)
+    B, S = x.shape[0], x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, k, v = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+    logits = head_out(x[:, 0], params, cfg, qm)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if max_len is not None and max_len > S:
+        pad = ks.new_zeros((cfg.n_layers, B, max_len - S, cfg.kv_dim))
+        ks = torch.cat([ks, pad], dim=2)
+        vs = torch.cat([vs, pad], dim=2)
+    if kv_quant is not None:
+        ks = PackedKV.from_dense(ks, kv_quant.fmt)
+        vs = PackedKV.from_dense(vs, kv_quant.fmt)
+    return logits, {"k": ks, "v": vs}
+
+
+def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
+                  last_idx: int, qm: QuantMode = QuantMode.off()):
+    """Chunked prefill against the contiguous cache: C tokens (B, C) at
+    positions start..start+C-1, written at those rows of every lane;
+    ``last_idx`` is the index within the chunk of the last real prompt
+    token (trailing pads write rows that stay masked until decode
+    overwrites them). Returns (logits (B, V) at last_idx, cache)."""
+    x = _embed(params, inputs)
+    C = x.shape[1]
+    pos = start + torch.arange(C, device=x.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_chunk(x, p, cfg, qm, cache["k"][i],
+                                      cache["v"][i], pos, start + C,
+                                      window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    xl = rms_norm(x[:, last_idx:last_idx + 1], params["ln_f"], cfg.norm_eps)
+    return head_out(xl[:, 0], params, cfg, qm), cache
+
+
+def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
+           qm: QuantMode = QuantMode.off()):
+    """One decode step over the contiguous cache. inputs (B,) tokens;
+    cur_len the cache fill — an int shared by the lanes (wave scheduler) or
+    a (B,) tensor of per-lane fills (continuous scheduler). Returns (logits
+    (B, V), cache)."""
+    x = _embed(params, inputs[:, None])
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_decode(x, p, cfg, qm, cache["k"][i],
+                                       cache["v"][i], cur_len,
+                                       window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return head_out(x[:, 0], params, cfg, qm), cache
 
 
 def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,

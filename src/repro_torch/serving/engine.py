@@ -1,20 +1,26 @@
-"""Serving engine of the port: continuous batching over a paged MX KV pool
-— the main-path subset of ``repro.serving.engine``.
+"""Serving engine of the port — the greedy-decoding subset of
+``repro.serving.engine``, with its two schedulers and two KV layouts.
 
-A fixed pool of B decode lanes shares one paged KV pool addressed through
-per-request block tables (page 0 is the scrap page that idle lanes park
-on). Admission chain-hashes each prompt's full pages (sha256) and reuses
-cached prefix pages by reference, copies a shared page before a rewrite
-lands in it (copy-on-write), and prefills up to
-``policy.max_prefill_lanes_per_step`` requests together in one chunked
-loop. Decode is greedy, in bursts of back-to-back steps with one host sync
-per burst, with a per-lane finite-logit guard. Schedule counters and
+``scheduler='wave'`` (the default) is static batching: up to B queued
+requests are left-padded to one bucketed length, prefilled together by one
+full-sequence forward into a fresh contiguous cache, and decoded in
+lockstep at one shared position. ``scheduler='continuous'`` keeps B decode
+lanes busy: free lanes admit queued requests by chunked prefill, then one
+decode burst runs over every lane at its own position. Its KV cache is
+either contiguous (``kv_layout='contiguous'``, the default: a (B, max_len)
+cache plus a one-lane scratch cache that admission prefills into and then
+copies into the lane) or paged (one pool of pages addressed through
+per-request block tables; page 0 is the scrap page that idle lanes park
+on; admission chain-hashes each prompt's full pages and reuses cached
+prefix pages by reference, copies a shared page before a rewrite lands in
+it, and prefills up to ``policy.max_prefill_lanes_per_step`` requests
+together). Decode is greedy, in bursts of back-to-back steps with one host
+sync per burst, with a per-lane finite-logit guard. Schedule counters and
 greedy tokens follow the JAX engine step for step.
 
-Waiting for later slices: the wave scheduler, the contiguous layout,
-sampling, speculative decoding, deadlines, cancel, preemption (a request
-the pool cannot take waits in the queue until pages free up), admission
-shedding, fault injection and the tracer.
+Waiting for later slices: sampling, speculative decoding, deadlines,
+cancel, preemption (a request the pool cannot take waits in the queue
+until pages free up), admission shedding, fault injection and the tracer.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.policy import (RequestQueue, RequestState,
                                         SchedulingPolicy)
 
-SCHEDULERS = ("continuous",)
-KV_LAYOUTS = ("paged",)
+SCHEDULERS = ("wave", "continuous")
+KV_LAYOUTS = ("contiguous", "paged")
 
 
 class BlockAllocator:
@@ -215,15 +221,15 @@ class _Slot:
 
 
 class Engine:
-    """Continuous-batching engine over ``api.prefill_chunk_paged`` /
-    ``api.decode_paged`` on ``device`` (default: the CUDA card).
+    """Serving engine on ``device`` (default: the CUDA card).
 
     ``params`` may hold dense tensors or ``PackedWeight`` leaves (artifact
     serving, :meth:`from_artifact`); under ``backend='fused'`` the packed
-    weights feed the GEMM kernel and a quantized pool (``kv_cache``) the
-    paged flash-prefill and flash-decode kernels. :meth:`submit` enqueues,
-    :meth:`step` runs one scheduler step, :meth:`drain` steps until idle,
-    :meth:`generate` = submit all + drain."""
+    weights feed the GEMM kernel and a quantized KV cache (``kv_cache``)
+    the flash-decode kernel of its layout (and, paged, the flash-prefill
+    kernel). :meth:`submit` enqueues, :meth:`step` runs one scheduler
+    step, :meth:`drain` steps until idle, :meth:`generate` = submit all +
+    drain."""
 
     _RUN_KEYS = ("admitted", "decode_steps", "slot_steps",
                  "useful_decode_tokens", "prefill_chunk_steps",
@@ -233,29 +239,37 @@ class Engine:
     def __init__(self, params, cfg: ArchConfig, qm: QuantMode,
                  batch_size: int = 4, max_len: int = 256,
                  backend: str | None = None,
-                 scheduler: str = "continuous",
+                 bucket_prompts: bool = True,
+                 scheduler: str = "wave",
                  eos_id: Optional[int] = None,
                  kv_cache: "str | KVCacheQuant | None" = None,
-                 kv_layout: str = "paged",
+                 kv_layout: str = "contiguous",
                  page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  policy: Optional[SchedulingPolicy] = None,
                  device=None):
-        """Arguments as in the JAX engine. ``scheduler`` must be
-        'continuous' and ``kv_layout`` 'paged' (the others are not ported
-        yet). page_size defaults to the smallest multiple of attn_chunk
-        >= 64 and must be a multiple of 32 and of attn_chunk; n_pages
-        defaults to one scrap page + batch_size * ceil(max_len /
-        page_size). ``device`` is where the engine runs: None means the
-        CUDA card, and the CPU runs only when asked for."""
+        """Arguments and defaults as in the JAX engine. bucket_prompts
+        rounds prompt lengths up to the attention chunk (wave and
+        contiguous continuous admission); bucketed pads are left-pad
+        tokens that are attended, as the JAX engine attends them.
+        kv_layout='paged' requires scheduler='continuous'; page_size
+        defaults to the smallest multiple of attn_chunk >= 64 and must be
+        a multiple of 32 and of attn_chunk; n_pages defaults to one scrap
+        page + batch_size * ceil(max_len / page_size). ``device`` is where
+        the engine runs: None means the CUDA card, and the CPU runs only
+        when asked for."""
         self.device = devices.resolve(device)
         if scheduler not in SCHEDULERS:
-            raise ValueError(f"scheduler {scheduler!r} is not ported yet "
-                             f"(ported: {SCHEDULERS})")
+            raise ValueError(f"unknown scheduler {scheduler!r} "
+                             f"(expected one of {SCHEDULERS})")
         if kv_layout not in KV_LAYOUTS:
-            raise ValueError(f"kv_layout {kv_layout!r} is not ported yet "
-                             f"(ported: {KV_LAYOUTS})")
+            raise ValueError(f"unknown kv_layout {kv_layout!r} "
+                             f"(expected one of {KV_LAYOUTS})")
+        if kv_layout == "paged" and scheduler != "continuous":
+            raise ValueError(
+                "kv_layout='paged' requires scheduler='continuous'; the "
+                "wave scheduler keeps the contiguous per-wave cache")
         if cfg.family != "dense" or not cfg.embed_inputs:
             raise ValueError(f"the port serves the dense token-embedding "
                              f"family; got {cfg.family!r}")
@@ -271,35 +285,40 @@ class Engine:
         self.params = devices.tree_to(params, self.device)
         self.cfg, self.qm = cfg, qm
         self.B = batch_size
+        self.bucket_prompts = bucket_prompts
         self.scheduler = scheduler
         self.kv_layout = kv_layout
         self.eos_id = eos_id
         chunk = cfg.attn_chunk
         self.max_len = (max_len + chunk - 1) // chunk * chunk
-        if page_size is None:
-            page_size = chunk * max(1, -(-64 // chunk))
-        if page_size % 32 != 0:
-            raise ValueError(f"page_size must be a multiple of the MX "
-                             f"32-block, got {page_size}")
-        if page_size % chunk != 0:
-            raise ValueError(
-                f"page_size must be a whole number of attention chunks so "
-                f"prefix-resume positions stay chunk-aligned; got "
-                f"page_size={page_size}, attn_chunk={chunk}")
-        self.page_size = page_size
-        self.pages_per_slot = -(-self.max_len // page_size)
-        if n_pages is None:
-            n_pages = 1 + self.B * self.pages_per_slot
-        if n_pages < 1 + self.pages_per_slot:
-            raise ValueError(
-                f"n_pages={n_pages} cannot hold one scrap page plus a "
-                f"full-length request ({self.pages_per_slot} pages for "
-                f"max_len={self.max_len})")
-        # page 0 is the scrap page idle lanes' tables park on
-        self._alloc = BlockAllocator(n_pages, page_size, reserved=1)
-        self._tables = np.zeros((self.B, self.pages_per_slot), np.int32)
-        self._tables_dev: Optional[torch.Tensor] = None
-        self._slot_pages: List[Optional[List[int]]] = [None] * self.B
+        self.page_size = 0
+        self.pages_per_slot = 0
+        self._alloc: Optional[BlockAllocator] = None
+        if kv_layout == "paged":
+            if page_size is None:
+                page_size = chunk * max(1, -(-64 // chunk))
+            if page_size % 32 != 0:
+                raise ValueError(f"page_size must be a multiple of the MX "
+                                 f"32-block, got {page_size}")
+            if page_size % chunk != 0:
+                raise ValueError(
+                    f"page_size must be a whole number of attention chunks "
+                    f"so prefix-resume positions stay chunk-aligned; got "
+                    f"page_size={page_size}, attn_chunk={chunk}")
+            self.page_size = page_size
+            self.pages_per_slot = -(-self.max_len // page_size)
+            if n_pages is None:
+                n_pages = 1 + self.B * self.pages_per_slot
+            if n_pages < 1 + self.pages_per_slot:
+                raise ValueError(
+                    f"n_pages={n_pages} cannot hold one scrap page plus a "
+                    f"full-length request ({self.pages_per_slot} pages for "
+                    f"max_len={self.max_len})")
+            # page 0 is the scrap page idle lanes' tables park on
+            self._alloc = BlockAllocator(n_pages, page_size, reserved=1)
+            self._tables = np.zeros((self.B, self.pages_per_slot), np.int32)
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._slot_pages: List[Optional[List[int]]] = [None] * self.B
 
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         reg = self.metrics
@@ -381,7 +400,8 @@ class Engine:
         self._next_id = 0
         self._slots: List[Optional[_Slot]] = [None] * self.B
         self._admit_cursor = 0
-        self._cache = None                # the paged pool (lazy)
+        self._cache = None         # continuous: the lanes' cache (lazy)
+        self._slot_cache = None    # contiguous: one-lane admission scratch
 
     # ------------------------------------------------------------------
     # Counter views
@@ -412,6 +432,8 @@ class Engine:
         return int(self._c_prefix_hit_toks.value)
 
     def _sync_alloc_metrics(self) -> None:
+        if self._alloc is None:
+            return
         self._g_blocks_in_use.set(self._alloc.in_use)
         self._g_blocks_cached.set(self._alloc.cached)
         if self._alloc.evicted > self._evicted_seen:
@@ -422,10 +444,10 @@ class Engine:
     def from_artifact(cls, path, batch_size: int = 4, max_len: int = 256,
                       eager: bool = False, verify: bool = True,
                       backend: str | None = None,
-                      scheduler: str = "continuous",
+                      scheduler: str = "wave",
                       eos_id: Optional[int] = None,
                       kv_cache: "str | KVCacheQuant | None" = None,
-                      kv_layout: str = "paged",
+                      kv_layout: str = "contiguous",
                       page_size: Optional[int] = None,
                       n_pages: Optional[int] = None,
                       metrics: Optional[MetricsRegistry] = None,
@@ -462,12 +484,40 @@ class Engine:
         return req
 
     def step(self) -> List[Request]:
-        """One scheduler step: admit queued requests into free lanes
-        (batched chunked prefill), then one decode burst over every live
-        lane. Returns the requests completed by it."""
+        """One scheduler step; returns the requests completed by it.
+
+        Continuous: admit queued requests into free lanes (chunked
+        prefill), then one decode burst over every live lane. Wave: serve
+        one full wave of up to B queued requests."""
+        if self.scheduler == "continuous":
+            return self._step_continuous()
+        done: List[Request] = []
+        reqs: List[Request] = []
+        now = time.perf_counter()
+        while len(reqs) < self.B:
+            req = self._queue.pop(now)
+            if req is None:
+                break
+            err = self._never_fits(req)
+            if err is not None:
+                self._reject_never_fit(req, err, done)
+                continue
+            reqs.append(req)
+        self._g_queue_depth.set(len(self._queue))
+        return (self._wave(reqs) if reqs else []) + done
+
+    def _step_continuous(self) -> List[Request]:
         self._ensure_pool()
         done: List[Request] = []
-        self._admit_batched(done, max(1, self.policy.max_prefill_lanes_per_step))
+        # paged admission batches up to max_prefill_lanes_per_step requests
+        # into one chunked-prefill loop; the contiguous layout admits one
+        # request at a time through its one-lane scratch cache
+        knob = (max(1, self.policy.max_prefill_lanes_per_step)
+                if self.kv_layout == "paged" else 1)
+        if knob > 1:
+            self._admit_batched(done, knob)
+        else:
+            self._admit_serial(done)
         self._admit_cursor = (self._admit_cursor + 1) % self.B
         live = [i for i in range(self.B) if self._slots[i] is not None]
         if live:
@@ -523,16 +573,43 @@ class Engine:
             self._h_tpot.observe((req.m_done - req.m_first)
                                  / (len(req.out) - 1))
 
+    def _bucket_len(self, s: int, max_new: int) -> int:
+        """Round a prompt length up to the attention chunk, but only as far
+        as the decode budget still fits the cache (else the raw length).
+        Bucketed prompts are left-padded further; the pads are attended
+        like the ragged wave's pads (static batching, no per-row masks).
+        ``bucket_prompts=False`` keeps the raw length."""
+        if not self.bucket_prompts:
+            return s
+        chunk = self.cfg.attn_chunk
+        sb = (s + chunk - 1) // chunk * chunk
+        while sb > s and sb + max_new > self.max_len:
+            sb -= chunk
+        return max(sb, s)
+
+    def _trim_eos(self, toks: np.ndarray) -> np.ndarray:
+        if self.eos_id is None:
+            return toks
+        hits = np.flatnonzero(toks == self.eos_id)
+        return toks[:hits[0] + 1] if hits.size else toks
+
     def _never_fits(self, req: Request) -> Optional[str]:
+        """Why this request can never be served, or None."""
         s = len(req.prompt)
-        if s + req.max_new > self.max_len:
-            return f"prompt {s} + max_new {req.max_new} > max_len " \
-                   f"{self.max_len}"
-        pages = -(-(s + req.max_new) // self.page_size)
-        if pages > self._alloc.capacity:
-            return (f"needs {pages} pages but the pool holds only "
-                    f"{self._alloc.capacity} even after evicting every "
-                    f"cached page")
+        if self.kv_layout == "paged":
+            if s + req.max_new > self.max_len:
+                return f"prompt {s} + max_new {req.max_new} > max_len " \
+                       f"{self.max_len}"
+            pages = -(-(s + req.max_new) // self.page_size)
+            if pages > self._alloc.capacity:
+                return (f"needs {pages} pages but the pool holds only "
+                        f"{self._alloc.capacity} even after evicting every "
+                        f"cached page")
+            return None
+        sb = self._bucket_len(s, req.max_new)
+        if sb + req.max_new > self.max_len:
+            return (f"prompt {s} (bucketed {sb}) + max_new {req.max_new} > "
+                    f"max_len {self.max_len}")
         return None
 
     def _reject_never_fit(self, req: Request, err: str,
@@ -548,9 +625,17 @@ class Engine:
             return
         emb = self.params.get("embed")
         dt = emb.dtype if emb is not None else torch.float32
-        self._cache = api.init_cache_paged(
-            self.cfg, self._alloc.n_pages, self.page_size, dt,
-            kv_quant=self.kv_quant, device=self.device)
+        if self.kv_layout == "paged":
+            self._cache = api.init_cache_paged(
+                self.cfg, self._alloc.n_pages, self.page_size, dt,
+                kv_quant=self.kv_quant, device=self.device)
+            return
+        self._cache = api.init_cache(self.cfg, self.B, self.max_len, dt,
+                                     kv_quant=self.kv_quant,
+                                     device=self.device)
+        self._slot_cache = api.init_cache(self.cfg, 1, self.max_len, dt,
+                                          kv_quant=self.kv_quant,
+                                          device=self.device)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never a view of it: the host
@@ -589,9 +674,12 @@ class Engine:
             hs.append(h.digest())
         return hs
 
-    def _release_paged(self, slot: int) -> None:
-        """Drop lane ``slot``'s page references and park its block table
-        on the scrap page."""
+    def _release_lane(self, slot: int) -> None:
+        """Paged: drop lane ``slot``'s page references and park its block
+        table on the scrap page. Contiguous: nothing to do (the lane's
+        stale rows are overwritten by its next admission's copy)."""
+        if self._alloc is None:
+            return
         pages = self._slot_pages[slot]
         if pages is not None:
             for p in pages:
@@ -706,7 +794,7 @@ class Engine:
         sb, tok, ok = res
         if not ok:
             self._c_nan.inc()
-            self._release_paged(i)
+            self._release_lane(i)
             self._finish(req, req._gen, state=RequestState.FAILED,
                          error=f"non-finite logits at prefill (lane {i})")
             done.append(req)
@@ -717,11 +805,98 @@ class Engine:
         if req.max_new - len(req._gen) == 0 or tok == self.eos_id:
             self._finish(req, req._gen)
             done.append(req)
-            self._release_paged(i)
+            self._release_lane(i)
             return False
         self._slots[i] = _Slot(req, req._gen, sb,
                                req.max_new - len(req._gen))
         return True
+
+    def _admit_serial(self, done: List[Request]) -> None:
+        """Fill free lanes in admit-cursor ring order, one request at a
+        time: pop, reject what can never fit, finish zero-budget requests,
+        prefill the rest (contiguous: :meth:`_admit`; paged: the plan's
+        serial prefill). On paged backpressure the request goes back to
+        the queue front and admission stops for this step."""
+        paged = self.kv_layout == "paged"
+        blocked = False
+        for off in range(self.B):
+            i = (self._admit_cursor + off) % self.B
+            if self._slots[i] is not None:
+                continue
+            while True:
+                req = self._queue.pop(time.perf_counter())
+                if req is None:
+                    break
+                err = self._never_fits(req)
+                if err is not None:
+                    self._reject_never_fit(req, err, done)
+                    continue
+                if req.max_new - len(req._gen) <= 0:
+                    self._c_admitted.inc()
+                    self._finish(req, req._gen)
+                    done.append(req)
+                    continue
+                t_a0 = time.perf_counter()
+                if paged:
+                    plan = self._admit_paged_prep(i, req)
+                    res = (None if plan is None
+                           else self._prefill_plan_serial(plan))
+                else:
+                    res = self._admit(i, req)
+                if res is None:
+                    self._queue.push_front(req)
+                    blocked = True
+                    break
+                self._record_admission(req, t_a0, time.perf_counter(),
+                                       res[2])
+                if self._post_admission(i, req, res, done):
+                    break
+            if blocked:
+                break
+
+    def _admit(self, slot: int, req: Request) -> tuple:
+        """Contiguous admission: chunk-prefill ``req`` into the one-lane
+        scratch cache, then copy that cache into lane ``slot``. The prompt
+        is left-padded to its bucket and run in attn_chunk-wide pieces;
+        the last piece right-pads and reads the logits of the last real
+        token (its pad rows stay masked until decode overwrites them).
+        Returns (bucketed prompt length, greedy first token, finite)."""
+        prompt = np.asarray(req.prompt, np.int32)
+        s = len(prompt)
+        max_new = req.max_new - len(req._gen)
+        C = self.cfg.attn_chunk
+        sb = self._bucket_len(s, max_new)
+        if sb + max_new > self.max_len:
+            raise ValueError(
+                f"request does not fit the KV pool: prompt {s} (bucketed "
+                f"{sb}) + max_new {max_new} > max_len {self.max_len}")
+        n_chunks = -(-sb // C)
+        buf = np.zeros(n_chunks * C, np.int32)
+        buf[sb - s:sb] = prompt
+        logits = None
+        for ci in range(n_chunks):
+            width = min(sb - ci * C, C)
+            logits, self._slot_cache = api.prefill_chunk(
+                self.params, self.cfg, self._slot_cache,
+                self._tensor(buf[None, ci * C:(ci + 1) * C]), ci * C,
+                width - 1, self.qm)
+            self._c_chunk_steps.inc()
+            self._c_prefill_lane_steps.inc()
+            self._h_prefill_batch.observe(1)
+        self._merge_slot(slot)
+        row = logits[0].cpu().numpy()
+        return sb, int(row.argmax()), bool(np.isfinite(row).all())
+
+    def _merge_slot(self, slot: int) -> None:
+        """Copy the scratch cache (every layer, K and V, codes and scales)
+        into lane ``slot`` of the lanes' cache."""
+        for name in ("k", "v"):
+            dst, src = self._cache[name], self._slot_cache[name]
+            if isinstance(dst, torch.Tensor):
+                dst[:, slot] = src[:, 0]
+            else:
+                dst.codes[:, slot] = src.codes[:, 0]
+                dst.scales[:, slot] = src.scales[:, 0]
 
     def _admit_batched(self, done: List[Request], knob: int) -> None:
         """Admit up to ``knob`` queued requests through ONE chunked-prefill
@@ -826,11 +1001,71 @@ class Engine:
             self._post_admission(p["slot"], p["req"], res, done)
 
     # ------------------------------------------------------------------
+    # Wave scheduler (static batching)
+    # ------------------------------------------------------------------
+
+    def _wave(self, reqs: List[Request]) -> List[Request]:
+        """Serve ``reqs`` as one wave: left-pad every prompt to the bucketed
+        longest length (pads are token 0 and are attended), prefill them
+        together into a fresh contiguous cache, then decode greedily in
+        lockstep at one shared position, with one host sync at the end and
+        a per-lane finite-logit guard."""
+        t0 = time.time()
+        B = len(reqs)
+        max_new = max(r.max_new for r in reqs)
+        S = self._bucket_len(max(len(r.prompt) for r in reqs), max_new)
+        toks = np.zeros((B, S), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, S - len(r.prompt):] = r.prompt           # left-pad
+        for r in reqs:
+            r.state = RequestState.RUNNING
+        last_logits, cache = api.prefill(self.params, self.cfg,
+                                         self._tensor(toks), self.qm,
+                                         max_len=self.max_len,
+                                         kv_quant=self.kv_quant)
+        nxt = last_logits.argmax(dim=-1).to(torch.int32)
+        toks_dev = [nxt]
+        oks_dev = [torch.isfinite(last_logits).all(dim=-1)]
+        pos = S
+        for _ in range(max_new - 1):
+            logits, cache = api.decode(self.params, self.cfg, cache, nxt,
+                                       pos, self.qm)
+            oks_dev.append(torch.isfinite(logits).all(dim=-1))
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            toks_dev.append(nxt)
+            pos += 1
+        host = torch.stack(toks_dev, dim=1).cpu().numpy()   # one sync
+        okh = torch.stack(oks_dev, dim=1).cpu().numpy()
+        t1 = time.time()
+        self._c_admitted.inc(B)
+        self._c_decode_steps.inc(max(max_new - 1, 0))
+        self._c_slot_steps.inc(B * max(max_new - 1, 0))
+        for i, r in enumerate(reqs):
+            bad = np.flatnonzero(~okh[i, :r.max_new])
+            if bad.size:
+                # only this lane fails: its output stops before the first
+                # non-finite step
+                out = self._trim_eos(host[i, :bad[0]].astype(np.int32))
+                self._c_nan.inc()
+                self._finish(r, out, state=RequestState.FAILED,
+                             error=f"non-finite logits in lane {i} at wave "
+                                   f"step {int(bad[0])}")
+            else:
+                out = self._trim_eos(host[i, :r.max_new].astype(np.int32))
+                self._finish(r, out)
+            r.t_submit, r.t_done = t0, t1
+            if r.on_token is not None:
+                for t in out:
+                    r.on_token(int(t))
+        return reqs
+
+    # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
 
     def _decode_burst(self, live: List[int], done: List[Request]) -> None:
-        """Decode every lane (idle lanes ride along on the scrap page).
+        """Decode every lane (idle lanes ride along: paged on the scrap
+        page, contiguous on their own stale rows).
         With no eos_id every lane runs exactly ``remaining`` more steps,
         so all steps up to the next lane completion are dispatched
         back-to-back, the sampled tokens fed straight back on the device,
@@ -843,12 +1078,18 @@ class Engine:
             cur[i] = self._slots[i].toks[-1]
             pos[i] = self._slots[i].pos
         cur_d, pos_d = self._tensor(cur), self._tensor(pos)
-        tables_d = self._tables_committed()
+        paged = self.kv_layout == "paged"
+        tables_d = self._tables_committed() if paged else None
         toks_dev, oks_dev = [], []
         for _ in range(burst):
-            logits, self._cache = api.decode_paged(
-                self.params, self.cfg, self._cache, cur_d, pos_d, tables_d,
-                self.qm)
+            if paged:
+                logits, self._cache = api.decode_paged(
+                    self.params, self.cfg, self._cache, cur_d, pos_d,
+                    tables_d, self.qm)
+            else:
+                logits, self._cache = api.decode(
+                    self.params, self.cfg, self._cache, cur_d, pos_d,
+                    self.qm)
             oks_dev.append(torch.isfinite(logits).all(dim=-1))
             cur_d = logits.argmax(dim=-1).to(torch.int32)
             toks_dev.append(cur_d)
@@ -865,7 +1106,7 @@ class Engine:
                 if not okh[i, step]:
                     self._c_nan.inc()
                     self._slots[i] = None
-                    self._release_paged(i)
+                    self._release_lane(i)
                     self._finish(sl.req, sl.toks, state=RequestState.FAILED,
                                  error=f"non-finite logits in lane {i} at "
                                        f"decode position {sl.pos}")
@@ -881,7 +1122,7 @@ class Engine:
                     self._finish(sl.req, sl.toks)
                     done.append(sl.req)
                     self._slots[i] = None
-                    self._release_paged(i)
+                    self._release_lane(i)
 
     # ------------------------------------------------------------------
     # Accounting
@@ -922,7 +1163,8 @@ class Engine:
                 "prefill_lanes_per_step": (
                     cum["prefill_lane_steps"]
                     / max(cum["prefill_chunk_steps"], 1)),
-                "blocks_in_use": self._alloc.in_use,
+                "blocks_in_use": (self._alloc.in_use if self._alloc
+                                  else 0),
                 "ttft_p50": ttft["p50"], "ttft_p99": ttft["p99"],
                 "tpot_p50": tpot["p50"], "tpot_p99": tpot["p99"],
                 "submitted": int(self._c_submitted.value),
@@ -931,17 +1173,28 @@ class Engine:
                 "nan_guard_trips": int(self._c_nan.value),
                 "rejected_never_fit": int(self._c_never_fit.value)}
 
+    @staticmethod
+    def _cache_bytes(cache) -> int:
+        total = 0
+        for leaf in cache.values():
+            ts = ((leaf,) if isinstance(leaf, torch.Tensor)
+                  else (leaf.codes, leaf.scales))
+            total += sum(t.numel() * t.element_size() for t in ts
+                         if t is not None)
+        return total
+
     def kv_bytes_resident(self) -> int:
-        """Bytes of the pool holding data the engine may read: pages
+        """Bytes of KV cache holding data the engine may read. The
+        contiguous layout reserves its (B, max_len) cache and the one-lane
+        scratch cache up front, so all of it counts (the wave scheduler
+        keeps no standing cache: 0). The paged layout counts the pages
         referenced by a live block table or cached for prefix reuse, plus
         the scrap page."""
         if self._cache is None:
             return 0
-        total = 0
-        for pool in self._cache.values():
-            for t in (pool.codes, pool.scales):
-                if t is not None:
-                    total += t.numel() * t.element_size()
+        total = self._cache_bytes(self._cache)
+        if self.kv_layout != "paged":
+            return total + self._cache_bytes(self._slot_cache)
         live = self._alloc.resident + self._alloc.reserved
         return total * live // self._alloc.n_pages
 

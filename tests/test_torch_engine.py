@@ -1,8 +1,11 @@
-"""The port's serving engine against the JAX engine: the same shared-prefix
-requests through ``repro_torch`` (CPU, fused backend, paged mxfp8 pool)
-and ``repro`` (reference backend) give the same greedy tokens and the
-same schedule counters, and leave the allocator clean."""
+"""The port's serving engine against the JAX engine: the same
+shared-prefix requests through ``repro_torch`` (CPU, fused backend, paged
+mxfp8 pool) and ``repro`` (reference backend) give the same greedy tokens
+and the same schedule counters, and leave the allocator clean; the
+engines' defaults agree; the entry point and the import rules hold. The
+contiguous layout's engine tests are in test_torch_engine_contiguous.py."""
 import dataclasses
+import inspect
 import json
 import pathlib
 import subprocess
@@ -85,7 +88,8 @@ def test_engine_matches_jax_engine(artifact, page_size):
 
 def test_engine_never_fit_and_counters(artifact):
     eng = TEngine.from_artifact(artifact, backend="fused", device="cpu",
-                                batch_size=2, max_len=128, kv_cache="mxfp8")
+                                batch_size=2, max_len=128, kv_cache="mxfp8",
+                                scheduler="continuous", kv_layout="paged")
     big = TRequest(prompt=np.zeros(120, np.int32), max_new=20)
     ok = TRequest(prompt=np.arange(10, dtype=np.int32), max_new=3)
     eng.generate([big, ok])
@@ -95,6 +99,19 @@ def test_engine_never_fit_and_counters(artifact):
     assert st["rejected_never_fit"] == 1
     assert st["terminal"] == {"finished": 1, "failed": 1}
     eng._alloc.check()
+
+
+def test_engine_defaults_match_jax_engine():
+    """``Engine(params, cfg, qm)`` serves the same way in both packages:
+    every keyword both signatures share has the same default."""
+    for jf, tf in ((JEngine.__init__, TEngine.__init__),
+                   (JEngine.from_artifact, TEngine.from_artifact)):
+        jp = inspect.signature(jf).parameters
+        tp = inspect.signature(tf).parameters
+        shared = [k for k in tp if k in jp and k not in ("self", "device")]
+        assert {"scheduler", "kv_layout"} <= set(shared)
+        assert {k: tp[k].default for k in shared} == \
+            {k: jp[k].default for k in shared}
 
 
 def test_serve_entry_point_on_the_cpu(artifact, capsys):
@@ -110,8 +127,8 @@ def test_serve_entry_point_on_the_cpu(artifact, capsys):
 
 def test_port_imports_no_jax_and_defaults_to_the_card():
     """Every repro_torch module imports without loading jax or any repro.*
-    module, and an entry point asked for no device raises without a
-    card."""
+    module, and the entry points asked for no device (the engine, both
+    cache constructors, a fresh packed KV cache) raise without a card."""
     code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -123,14 +140,22 @@ assert not bad, bad
 import torch
 from repro_torch import configs
 from repro_torch.core.quantize import QuantMode
+from repro_torch.kernels.packing import PackedKV
+from repro_torch.models import api
 from repro_torch.serving.engine import Engine
+cfg = configs.get_reduced("qwen2-0.5b")
 if not torch.cuda.is_available():
-    try:
-        Engine({}, configs.get_reduced("qwen2-0.5b"), QuantMode.off())
-    except RuntimeError as e:
-        assert "device" in str(e)
-    else:
-        raise AssertionError("Engine ran on the CPU without being asked")
+    for name, call in (
+            ("Engine", lambda: Engine({}, cfg, QuantMode.off())),
+            ("init_cache", lambda: api.init_cache(cfg, 1, 64)),
+            ("init_cache_paged", lambda: api.init_cache_paged(cfg, 2, 64)),
+            ("PackedKV.zeros", lambda: PackedKV.zeros((1, 64, 64)))):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "device" in str(e), (name, e)
+        else:
+            raise AssertionError(f"{name} ran on the CPU without being asked")
 print("ok")
 """
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

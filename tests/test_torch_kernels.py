@@ -13,6 +13,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import packing as jpk
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
 
 
@@ -70,6 +71,78 @@ def test_quantizers_match_pallas(fmt):
     ct, st = tref.hadamard_quant_ref(_t(x), fmt)
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     assert (ct.numpy() != np.asarray(cj)).mean() <= 1e-2
+
+
+MX_FMTS = ("mxfp4", "mxint4", "mxfp6", "mxfp8", "mxint8")
+
+
+def _spread(rng, shape):
+    """Normal values whose 32-blocks span several binades (every block
+    scale inside 2^+-12, where XLA's f32 exp2 is exact), one block zero."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= np.exp2(rng.integers(-3, 6, shape[:-1] + (shape[-1] // 32, 1))
+                 ).astype(np.float32).repeat(32, axis=-1).reshape(shape)
+    x.reshape(-1)[:32] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_standalone_quantizers_match_pallas(fmt):
+    """ops.mx_quantize / ops.t3_quantize against the Pallas mx_quant /
+    hadamard_quant in every MX format: mx_quantize codes and f32 scales
+    byte-equal; t3_quantize scales equal and at most 1% of codes moved by
+    the rotation's summation order."""
+    x = _spread(np.random.default_rng(8), (24, 256))
+    cj, sj = jops.mx_quantize(jnp.asarray(x), fmt, interpret=True)
+    ct, st = tops.mx_quantize(_t(x), fmt)
+    assert ct.dtype == torch.uint8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    cj, sj = jops.t3_quantize(jnp.asarray(x), fmt, interpret=True)
+    ct, st = tops.t3_quantize(_t(x), fmt)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    assert (ct.numpy() != np.asarray(cj)).mean() <= 1e-2
+
+
+@pytest.mark.parametrize("fmt", MX_FMTS)
+def test_unpacked_gemm_matches_pallas(fmt):
+    """ops.mx_gemm against the Pallas mx_matmul, with the weight codes and
+    f32 scales made by the JAX package's encoder: rtol 1e-5."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((6, 96)).astype(np.float32)
+    w = (rng.standard_normal((96, 40)) / np.sqrt(96)).astype(np.float32)
+    cj, sj = jops.mx_quantize(jnp.asarray(w.T.copy()), fmt, interpret=True)
+    wc, ws = np.asarray(cj).T.copy(), np.asarray(sj).T.copy()
+    yj = np.asarray(jops.mx_gemm(jnp.asarray(x), jnp.asarray(wc),
+                                 jnp.asarray(ws), fmt, interpret=True))
+    yt = tops.mx_gemm(_t(x), _t(wc), _t(ws), fmt).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=1e-5,
+                               atol=1e-6 * np.abs(yj).max())
+
+
+@pytest.mark.parametrize("fmt", jpk.KV_FMTS)
+@pytest.mark.parametrize("window", (0, 7))
+def test_flash_decode_matches_pallas(fmt, window):
+    """ops.mx_flash_decode over a contiguous packed cache (GQA 14 over 2
+    heads, ragged fills) against the Pallas kernel run with a multi-chunk
+    grid (bs=16): atol 1e-5."""
+    rng = np.random.default_rng(10)
+    B, H, kvh, Dh, S = 3, 14, 2, 32, 64
+    D = kvh * Dh
+    kv_len = np.array([37, 64, 5], np.int32)
+    q_pos = kv_len - 1
+    caches = []
+    for _ in range(2):
+        c, sc = jpk.kv_encode(jnp.asarray(
+            rng.standard_normal((B, S, D)).astype(np.float32)), fmt)
+        caches += [np.asarray(c), np.asarray(sc)]
+    q = rng.standard_normal((B, H, Dh)).astype(np.float32)
+    oj = np.asarray(jops.mx_flash_decode(
+        jnp.asarray(q), *map(jnp.asarray, caches), jnp.asarray(q_pos),
+        jnp.asarray(kv_len), fmt, window=window, bs=16, interpret=True))
+    ot = tops.mx_flash_decode(_t(q), *map(_t, caches), _t(q_pos),
+                              _t(kv_len), fmt, window=window).numpy()
+    np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-5)
 
 
 def _pool(rng, n_pages, P, D, fmt):
@@ -165,6 +238,31 @@ def test_off_contract_inputs_raise():
         tops.mx_flash_prefill(torch.zeros(2, 4, 4, 16), torch.zeros(2, 4, 64),
                               torch.zeros(2, 4, 64), codes, scales, codes,
                               scales, bt[:, :0], lens, lens)
+    cc = torch.zeros(2, 16, 64, dtype=torch.uint8)
+    cs = torch.zeros(2, 16, 2, dtype=torch.uint8)
+    with pytest.raises(ValueError):           # 14 heads over 64/24 kv heads
+        tops.mx_flash_decode(torch.zeros(2, 14, 24), cc, cs, cc, cs, lens,
+                             lens)
+    with pytest.raises(ValueError):           # lanes of q and cache differ
+        tops.mx_flash_decode(torch.zeros(3, 4, 16), cc, cs, cc, cs, lens,
+                             lens)
+    with pytest.raises(ValueError):           # not a KV format
+        tops.mx_flash_decode(torch.zeros(2, 4, 16), cc, cs, cc, cs, lens,
+                             lens, "mxfp6")
+    for quantize in (tops.mx_quantize, tops.t3_quantize):
+        with pytest.raises(ValueError):       # K not a multiple of 32
+            quantize(torch.zeros(2, 48))
+        with pytest.raises(ValueError):       # not (M, K)
+            quantize(torch.zeros(2, 2, 64))
+        with pytest.raises(ValueError):       # unknown format
+            quantize(torch.zeros(2, 64), "mxfp3")
+    wc = torch.zeros(64, 8, dtype=torch.uint8)
+    with pytest.raises(ValueError):           # K of x and w differ
+        tops.mx_gemm(torch.zeros(2, 32), wc, torch.ones(2, 8))
+    with pytest.raises(ValueError):           # scales not (K//32, N)
+        tops.mx_gemm(torch.zeros(2, 64), wc, torch.ones(2, 4))
+    with pytest.raises(ValueError):           # codes not uint8
+        tops.mx_gemm(torch.zeros(2, 64), wc.float(), torch.ones(2, 8))
 
 
 def test_cpu_calls_do_not_count_as_launches():
@@ -172,4 +270,12 @@ def test_cpu_calls_do_not_count_as_launches():
     rng = np.random.default_rng(5)
     wp, ws = _packed_weight(rng, (32, 8))
     tops.mx_gemm_packed(torch.ones(1, 32), _t(wp), _t(ws))
+    x = torch.ones(2, 32)
+    c, s = tops.mx_quantize(x)
+    tops.t3_quantize(x)
+    tops.mx_gemm(x, c.T.contiguous(), s.T.contiguous())
+    kc, ks = tpk.kv_encode(torch.ones(2, 4, 32))
+    tops.mx_flash_decode(torch.ones(2, 2, 16), kc, ks, kc, ks, 3, 4)
+    assert set(tops.launches) >= {"mx_flash_decode", "mx_quantize",
+                                  "t3_quantize", "mx_gemm"}
     assert tops.launches == {k: 0 for k in tops.launches}

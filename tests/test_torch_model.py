@@ -1,11 +1,14 @@
 """The port's dense transformer and artifact store against the JAX package,
 on the trained 4-layer checkpoint in experiments/bench_model: logits of the
-full forward, paged chunked prefill and paged decode; artifacts exported by
-either package load byte-equal in the other; tampering raises."""
+full forward, of full and chunked prefill and of decode over the
+contiguous cache, and of paged chunked prefill and paged decode; artifacts
+exported by either package load byte-equal in the other; tampering
+raises."""
 import dataclasses
 import pathlib
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,19 +17,25 @@ import torch
 from repro.artifacts import export_artifact as j_export
 from repro.artifacts import load_artifact as j_load
 from repro.configs.base import ArchConfig as JArch
+from repro.core import mx as jmx
 from repro.core import ptq as jptq
+from repro.core import transforms as jtfm
 from repro.core.quantize import KVCacheQuant as JKV
 from repro.core.quantize import QuantMode as JQM
 from repro.kernels.packing import PackedWeight as JPW
+from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro_torch import convert
 from repro_torch.artifacts import (IntegrityError, export_artifact,
                                    load_artifact, verify_artifact)
 from repro_torch.configs.base import ArchConfig as TArch
+from repro_torch.core import mx as tmx
 from repro_torch.core import ptq as tptq
+from repro_torch.core import transforms as ttfm
 from repro_torch.core.quantize import KVCacheQuant as TKV
 from repro_torch.core.quantize import QuantMode as TQM
 from repro_torch.kernels.packing import PackedWeight as TPW
+from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -106,11 +115,17 @@ def test_forward_matches_jax_unquantized(bench):
     _close(lt.numpy(), lj, 1e-4)
 
 
+def _init_kw(mod):
+    """The port's entry points default to the card; these tests ask for
+    the CPU."""
+    return {"device": "cpu"} if mod is ttf else {}
+
+
 def _paged_run(mod, params, cfg, qm, kv, toks, as_array):
     """Two chunked-prefill calls (per-lane starts) then three decode steps
     through scattered block tables; returns the logits of every call."""
     P, C = 64, cfg.attn_chunk
-    cache = mod.init_cache_paged(cfg, 8, P, kv_quant=kv)
+    cache = mod.init_cache_paged(cfg, 8, P, kv_quant=kv, **_init_kw(mod))
     bt = as_array(np.array([[5, 2, 7], [3, 6, 1]], np.int32))
     out = []
     for ci, last in ((0, [63, 63]), (1, [10, 40])):
@@ -140,6 +155,207 @@ def test_paged_prefill_decode_match_jax_unquantized(bench, kv):
                     torch.from_numpy)
     for a, b in zip(lt, lj):
         _close(a, b, 1e-4)
+
+
+def _scalar(mod, v):
+    return jnp.int32(v) if mod is jtf else int(v)
+
+
+def _contiguous_run(mod, params, cfg, qm, kv, toks, as_array):
+    """The contiguous cache both ways: a full prefill of ``toks`` into a
+    128-row cache then three decode steps at one shared position (the
+    wave scheduler); and two chunked-prefill calls into a fresh cache
+    then three decode steps at per-lane positions (the continuous
+    scheduler). Returns the logits of every call."""
+    C, S = cfg.attn_chunk, 40
+    out = []
+    lg, cache = mod.prefill(params, cfg, as_array(toks[:, :S]), qm,
+                            max_len=128, kv_quant=kv)
+    out.append(np.asarray(lg))
+    nxt = out[-1].argmax(-1).astype(np.int32)
+    for t in range(3):
+        lg, cache = mod.decode(params, cfg, cache, as_array(nxt),
+                               _scalar(mod, S + t), qm)
+        out.append(np.asarray(lg))
+        nxt = out[-1].argmax(-1).astype(np.int32)
+    cache = mod.init_cache(cfg, 2, 128, kv_quant=kv, **_init_kw(mod))
+    for ci, last in ((0, 63), (1, 40)):
+        lg, cache = mod.prefill_chunk(
+            params, cfg, cache, as_array(toks[:, ci * C:(ci + 1) * C]),
+            _scalar(mod, ci * C), _scalar(mod, last), qm)
+        out.append(np.asarray(lg))
+    cur = np.array([C + 11, C + 41], np.int32)
+    nxt = out[-1].argmax(-1).astype(np.int32)
+    for _ in range(3):
+        lg, cache = mod.decode(params, cfg, cache, as_array(nxt),
+                               as_array(cur), qm)
+        out.append(np.asarray(lg))
+        nxt, cur = out[-1].argmax(-1).astype(np.int32), cur + 1
+    return out
+
+
+@pytest.mark.parametrize("backend", ("ref", "fused"))
+@pytest.mark.parametrize("kv", ("none", "mxfp8"))
+def test_contiguous_prefill_decode_match_jax(bench, kv, backend):
+    """Full and chunked prefill and both decode forms over the contiguous
+    cache, the f32 checkpoint, the same backend on both sides: logits
+    within 1e-4 of max |logit|."""
+    _, jparams, tparams = bench
+    toks = _tokens(4, (2, 128))
+    lj = _contiguous_run(jtf, jparams, JCFG, JQM.off().with_backend(backend),
+                         JKV.parse(kv), toks, jnp.asarray)
+    lt = _contiguous_run(ttf, tparams, TCFG, TQM.off().with_backend(backend),
+                         TKV.parse(kv), toks, torch.from_numpy)
+    for a, b in zip(lt, lj):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("backend", ("ref", "fused"))
+def test_contiguous_artifact_matches_jax(jax_artifact, backend):
+    """The mxfp4 artifact (weights, activations, T3) over the contiguous
+    cache, the same backend on both sides: within 1e-2 of max |logit| of
+    the JAX package, the bar of the paged path, with a dense cache and
+    with an mxfp8 cache (on the paged test's traffic). Where the two
+    packages part instead, the cause is a one-ulp tie at an MX snap
+    midpoint (see the test below); on such traffic the port's fused path
+    (the kernels' plain versions) still gives its reference path's logits
+    bit for bit."""
+    jp, _, jqm = j_load(jax_artifact)
+    tp, _, tqm = load_artifact(jax_artifact, device="cpu")
+    for kv, seed in ((None, 4), ("mxfp8", 3)):
+        toks = _tokens(seed, (2, 128))
+        lj = _contiguous_run(jtf, jp, JCFG, jqm.with_backend(backend),
+                             kv and JKV(kv), toks, jnp.asarray)
+        lt = _contiguous_run(ttf, tp, TCFG, tqm.with_backend(backend),
+                             kv and TKV(kv), toks, torch.from_numpy)
+        for a, b in zip(lt, lj):
+            _close(a, b, 1e-2)
+    toks = _tokens(4, (2, 128))
+    lt = _contiguous_run(ttf, tp, TCFG, tqm.with_backend(backend),
+                         TKV("mxfp8"), toks, torch.from_numpy)
+    other = "ref" if backend == "fused" else "fused"
+    lo = _contiguous_run(ttf, tp, TCFG, tqm.with_backend(other),
+                         TKV("mxfp8"), toks, torch.from_numpy)
+    for a, b in zip(lt, lo):
+        np.testing.assert_array_equal(a, b)
+
+
+def _record_activations(monkeypatch):
+    """Record the activation handed to every quantized linear of both
+    packages' dense models, in call order, as numpy arrays."""
+    rec = {"j": [], "t": []}
+
+    def hook(mod, side, record):
+        inner = mod.qlinear
+
+        def wrapped(x, w, b, qm, role=""):
+            record(role, x)
+            return inner(x, w, b, qm, role)
+        monkeypatch.setattr(mod, "qlinear", wrapped)
+
+    def record_jax(role, x):
+        # inside the package's compiled layer scan, as it runs there
+        jax.debug.callback(
+            lambda v: rec["j"].append((role, np.asarray(v))), x,
+            ordered=True)
+    for mod in (jtf, jlayers):
+        hook(mod, "j", record_jax)
+    for mod in (ttf, tlayers):
+        hook(mod, "t", lambda role, x: rec["t"].append(
+            (role, x.detach().numpy().copy())))
+    return rec
+
+
+def _jax_act(x, qm, role):
+    """What the JAX package's quantized linear snaps: (value, snapped)."""
+    x = jnp.asarray(x)
+    if qm.t3_block and role == "ffn_down":
+        x = jtfm.apply_blockwise(x, jtfm.hadamard_matrix(qm.t3_block))
+    return np.asarray(x), np.asarray(jmx.quantize(x, qm.act_cfg))
+
+
+def _port_act(x, qm, role):
+    x = torch.tensor(x)
+    if qm.t3_block and role == "ffn_down":
+        x = ttfm.apply_blockwise(x, ttfm.hadamard_matrix(qm.t3_block))
+    return x.numpy(), tmx.quantize(x, qm.act_cfg).numpy()
+
+
+def _tie(a, b, edge):
+    """``a`` and ``b`` lie on either side of ``edge`` (or on it), within
+    four ulps of each other."""
+    lo, hi = sorted((np.float32(a), np.float32(b)))
+    edge = np.float32(edge)
+    assert lo <= edge <= hi and hi - lo <= 4 * abs(np.spacing(edge)), \
+        (a, b, edge)
+
+
+@pytest.mark.parametrize("backend", ("ref", "fused"))
+@pytest.mark.parametrize("kind,seed",
+                         [("chunk-mxfp8", s) for s in (3, 4, 5, 6)]
+                         + [("left-pads", n) for n in (0, 10, 60)])
+def test_artifact_parts_from_jax_only_at_ulp_ties(jax_artifact, monkeypatch,
+                                                  kind, seed, backend):
+    """Where the mxfp4 artifact's logits part from the JAX package's, the
+    cause is an MX tie decided by the last bits of an f32 sum, not the
+    port. One call runs in both packages, the same backend on both sides:
+    the first chunk of a chunked prefill into an mxfp8 contiguous cache
+    (tokens from ``seed``), or a full prefill with lane 0 left-padded by
+    ``seed`` zero tokens. Every quantized linear's activation is recorded
+    (on the JAX side inside its compiled layer scan). Up to the first
+    activation code that differs, the port's quantizer gives the JAX
+    package's codes on the JAX package's own activation. In the first
+    linear where codes differ, every differing 32-block is a tie: either
+    its amax lies within four ulps on either side of a power of two (the
+    block scale), or each differing element lies within four ulps on
+    either side of the midpoint of its two codes (both packages round a
+    midpoint away from zero). With no differing code, the logits agree
+    within 1e-4 of max |logit|."""
+    rec = _record_activations(monkeypatch)
+    jp, _, jqm = j_load(jax_artifact)
+    tp, _, tqm = load_artifact(jax_artifact, device="cpu")
+    jqm, tqm = jqm.with_backend(backend), tqm.with_backend(backend)
+    toks = _tokens(seed, (2, 128))
+    if kind == "chunk-mxfp8":
+        C = JCFG.attn_chunk
+        cache = jtf.init_cache(JCFG, 2, 128, kv_quant=JKV("mxfp8"))
+        lj, _ = jtf.prefill_chunk(jp, JCFG, cache, jnp.asarray(toks[:, :C]),
+                                  jnp.int32(0), jnp.int32(C - 1), jqm)
+        cache = ttf.init_cache(TCFG, 2, 128, kv_quant=TKV("mxfp8"),
+                               device="cpu")
+        lt, _ = ttf.prefill_chunk(tp, TCFG, cache,
+                                  torch.from_numpy(toks[:, :C]), 0, C - 1,
+                                  tqm)
+    else:
+        toks[0, :seed] = 0
+        lj, _ = jtf.prefill(jp, JCFG, jnp.asarray(toks), jqm)
+        lt, _ = ttf.prefill(tp, TCFG, torch.from_numpy(toks), tqm)
+    jax.effects_barrier()
+    assert len(rec["j"]) == len(rec["t"]) > 0
+    for (role, aj), (role_t, at) in zip(rec["j"], rec["t"]):
+        assert role == role_t
+        if role == "head" and not jqm.quantize_head:
+            continue
+        xj, qj = _jax_act(aj, jqm, role)
+        np.testing.assert_array_equal(_port_act(aj, tqm, role)[1], qj)
+        xt, qt = _port_act(at, tqm, role)
+        if np.array_equal(qj, qt):
+            continue
+        blk = qj.shape[:-1] + (-1, 32)
+        xj, xt = xj.reshape(blk), xt.reshape(blk)
+        qj, qt = qj.reshape(blk), qt.reshape(blk)
+        for i in map(tuple, np.argwhere((qj != qt).any(-1))):
+            aj, at = np.abs(xj[i]).max(), np.abs(xt[i]).max()
+            if np.frexp(aj)[1] != np.frexp(at)[1]:
+                # the block's amax straddles a power of two: its scale
+                _tie(aj, at, np.float32(2.0 ** (np.frexp(max(aj, at))[1]
+                                                - 1)))
+                continue
+            for k in np.flatnonzero(qj[i] != qt[i]):
+                # one element straddles the midpoint of its two codes
+                _tie(xj[i][k], xt[i][k], (qj[i][k] + qt[i][k]) / 2)
+        return
+    _close(lt.numpy(), np.asarray(lj), 1e-4)
 
 
 def test_artifact_loads_byte_equal_and_serves(bench, jax_artifact):

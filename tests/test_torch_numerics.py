@@ -144,3 +144,57 @@ def test_e8m0_round_trip_and_packed_nbytes():
     for fmt in FMTS:
         assert tmx.packed_nbytes((4, 64, 96), tmx.MXConfig(fmt=fmt)) == \
             jmx.packed_nbytes((4, 64, 96), jmx.MXConfig(fmt=fmt))
+
+
+@pytest.mark.parametrize("fmt", jpk.KV_FMTS)
+def test_packed_kv_zeros_from_dense_and_slices(fmt):
+    """PackedKV: a fresh cache, ``from_dense`` of a cache whose tail rows
+    are zeros (a wave's padded cache: amax 0 maps to scale 1), the decode
+    back and a layer slice — byte-equal to the JAX package."""
+    shape = (2, 3, 8, 64)
+    zj = jpk.PackedKV.zeros(shape, fmt)
+    zt = tpk.PackedKV.zeros(shape, fmt, device="cpu")
+    np.testing.assert_array_equal(zt.codes.numpy(), np.asarray(zj.codes))
+    np.testing.assert_array_equal(zt.scales.numpy(), np.asarray(zj.scales))
+    x = _x(5, shape)
+    x[..., 5:, :] = 0.0
+    pj = jpk.PackedKV.from_dense(jnp.asarray(x), fmt)
+    pt = tpk.PackedKV.from_dense(torch.from_numpy(x), fmt)
+    assert pt.shape == tuple(pj.shape) == shape
+    np.testing.assert_array_equal(pt.codes.numpy(), np.asarray(pj.codes))
+    np.testing.assert_array_equal(pt.scales.numpy(), np.asarray(pj.scales))
+    np.testing.assert_array_equal(pt.to_dense().numpy(),
+                                  np.asarray(pj.to_dense()))
+    np.testing.assert_array_equal(pt[1].codes.numpy(),
+                                  np.asarray(pj.codes)[1])
+    assert torch.equal(pt.to("cpu").scales, pt.scales)
+
+
+@pytest.mark.parametrize("fmt", ("none",) + jpk.KV_FMTS)
+def test_contiguous_cache_writes_match(fmt):
+    """kv_write_rows (one row per lane at its own position) and
+    kv_write_slice (a chunk at a shared start) leave the same bytes as the
+    JAX package's writes; the port writes in place."""
+    from repro.models import layers as jl
+    from repro_torch.models import layers as tl
+    B, S, D = 3, 16, 64
+    base = _x(6, (B, S, D))
+    if fmt == "none":
+        cj, ct = jnp.asarray(base), torch.from_numpy(base.copy())
+    else:
+        cj = jpk.PackedKV.from_dense(jnp.asarray(base), fmt)
+        ct = tpk.PackedKV.from_dense(torch.from_numpy(base), fmt)
+    new = _x(7, (B, 1, D))
+    rows = np.array([0, 9, 15], np.int32)
+    cj = jl.kv_write_rows(cj, jnp.asarray(new), jnp.asarray(rows))
+    assert tl.kv_write_rows(ct, torch.from_numpy(new),
+                            torch.from_numpy(rows)) is ct
+    chunk = _x(8, (B, 4, D))
+    cj = jl.kv_write_slice(cj, jnp.asarray(chunk), jnp.int32(6))
+    ct = tl.kv_write_slice(ct, torch.from_numpy(chunk), 6)
+    if fmt == "none":
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    else:
+        np.testing.assert_array_equal(ct.codes.numpy(), np.asarray(cj.codes))
+        np.testing.assert_array_equal(ct.scales.numpy(),
+                                      np.asarray(cj.scales))
