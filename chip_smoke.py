@@ -8,10 +8,12 @@ Phases, in order (each raises on failure; nothing is caught):
 1. card facts: ``nvidia-smi`` name and power limit, torch / CUDA versions,
    the build of the six CUDA sources in ``src/repro_torch/kernels/csrc``;
 2. kernels: each of the seven kernels against its plain PyTorch version on
-   the card, at the Qwen2-0.5B shapes of the serving path, with CUDA-event
+   the card, at the Qwen2-0.5B shapes of the serving path (the packed GEMM
+   at the decode shape M = 4 and the prefill shape M = 4096), with the
    times of the kernel, the plain version and one PyTorch library call
-   (where one computes the same function), and the least time the card
-   could take (``bound_ms``);
+   (where one computes the same function) — device time from
+   ``torch.profiler``, and per call with the wrapper included by CUDA
+   events — and the least time the card could take (``bound_ms``);
 3. end to end: Qwen2-0.5B at its published widths (24 layers, random
    weights from a seed, RTN mxfp4 with the T3 rotation) exported as an
    artifact and served by ``Engine.from_artifact`` (fused backend, mxfp8
@@ -20,7 +22,8 @@ Phases, in order (each raises on failure; nothing is caught):
    contiguous cache), the continuous scheduler on the contiguous cache,
    and the continuous scheduler on the paged cache with two requests that
    share a one-page prefix. A ``torch.profiler`` breakdown of a wave run
-   and of a paged run; the first prefill and one decode step of each
+   and of a paged run; the host and device time of a decode step at the
+   wave's shape; the first prefill and one decode step of each
    layout again with every kernel call held against its plain version on
    the same inputs; the paged path's fused logits and greedy tokens
    compared with the reference backend's;
@@ -94,6 +97,69 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(torch, fn, iters: int, warmup: int = 3,
+              exact: bool = True) -> float:
+    """Mean device milliseconds per call of ``fn``: the durations
+    ``torch.profiler`` records for the CUDA kernels (and memory copies and
+    sets) that ``iters`` calls launched, summed, over ``iters``. Unlike
+    :func:`cuda_ms` this leaves out the host's time between launches. With
+    ``exact``, every call launches the same kernels, so a record whose
+    count of device events is not a multiple of ``iters`` lost some: it is
+    taken again. A whole decode step is thousands of operations, of which
+    the profiler may drop a few (seen on an H100: 27711 to 27714 events for
+    10 steps); it passes ``exact=False`` and takes the sum as recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    counts = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(len(dev))
+        if dev and (not exact or len(dev) % iters == 0):
+            return sum(e.device_time_total for e in dev) / 1e3 / iters
+    raise AssertionError(f"the profiler's device events ({counts}) are not "
+                         f"a multiple of the {iters} calls")
+
+
+def measure(torch, fn, iters: int):
+    """(device ms per call, ms per call with the wrapper included). The
+    kernels of one stream cannot take longer than the wall time of their
+    calls, so a device reading above the events' figure by more than 2% is
+    a bad record: it is logged and both are taken again, and three bad
+    pairs in a row fail the run."""
+    for _ in range(3):
+        wall = cuda_ms(torch, fn, iters)
+        dev = device_ms(torch, fn, iters)
+        if dev <= 1.02 * wall:
+            return dev, wall
+        log(f"  discarded: device reading {dev:.4f} ms per call above the "
+            f"{wall:.4f} ms per call by events")
+    raise AssertionError("three device readings above their calls' wall "
+                         "time: the profiler's record is not usable")
+
+
+def timed(torch, label, kernel, plain, library, iters, plain_iters):
+    """Time a kernel call, its plain version and (where there is one) the
+    library call both ways; logs them, returns the JSON fields."""
+    ms, ms_w = measure(torch, kernel, iters)
+    pl, pl_w = measure(torch, plain, plain_iters)
+    lib, lib_w = (None, None) if library is None else measure(
+        torch, library, iters)
+    fmt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
+    log(f"{label}: device kernel_ms {ms:.4f} plain_ms {pl:.4f} library_ms "
+        f"{fmt(lib)}; per call, wrapper included: kernel {ms_w:.4f} plain "
+        f"{pl_w:.4f} library {fmt(lib_w)}")
+    return {"ms": ms, "plain_ms": pl, "library_ms": lib,
+            "wrapper_ms": {"kernel": ms_w, "plain": pl_w, "library": lib_w}}
+
+
 def bound_ms(nbytes: float, flops: float, peak: float):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -129,40 +195,45 @@ def check_gemm(torch, dev, gen):
     cases = [(m, k, n, t3) for m in (4, 4096)
              for (k, n, t3) in ((896, 896, False), (896, 128, False),
                                 (896, 4864, False), (4864, 896, True))]
-    entry = None
+    entries = []
     for M, K, N, t3 in cases:
         x = torch.randn(M, K, generator=gen, device=dev)
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
         pw = packing.PackedWeight.from_dense(w)
         y = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+        y2 = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
         yp = ref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
                                       t3=t3)
         torch.cuda.synchronize()
         err = (y - yp).abs().max().item()
         tol = 1e-4 * yp.abs().max().item()
+        same = torch.equal(y, y2)
         log(f"gemm M={M} K={K} N={N} t3={t3}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e})")
+            f"(tol {tol:.3e}); two calls bitwise equal: {same}")
         if not err <= tol:
             raise AssertionError(f"mx_gemm_packed disagrees with its plain "
                                  f"version at M={M} K={K} N={N} t3={t3}")
+        if not same:
+            raise AssertionError(f"mx_gemm_packed is not repeatable at M={M} "
+                                 f"K={K} N={N}")
         iters = 200 if M == 4 else 20
-        ms = cuda_ms(torch, lambda: ops.mx_gemm_packed(
-            x, pw.codes_packed, pw.scales_e8m0, t3=t3), iters)
-        plain = cuda_ms(torch, lambda: ref.mx_matmul_packed_ref(
-            x, pw.codes_packed, pw.scales_e8m0, t3=t3), max(iters // 4, 5))
         xq = mxlib.quantize(x)
         wd = pw.to_dense()
-        lib = cuda_ms(torch, lambda: torch.matmul(xq, wd), iters)
+        t = timed(torch, f"gemm M={M} K={K} N={N} t3={t3}",
+                  lambda: ops.mx_gemm_packed(x, pw.codes_packed,
+                                             pw.scales_e8m0, t3=t3),
+                  lambda: ref.mx_matmul_packed_ref(
+                      x, pw.codes_packed, pw.scales_e8m0, t3=t3),
+                  lambda: torch.matmul(xq, wd), iters, max(iters // 4, 5))
         nbytes = M * K * 4 + K * N // 2 + K * N // 32 + M * N * 4
         b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
-        log(f"gemm M={M} K={K} N={N} t3={t3}: kernel_ms {ms:.4f} plain_ms "
-            f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} ({by})")
-        if (M, K, N) == (4096, 896, 4864):
-            entry = {"name": "mx_gemm_packed",
-                     "shape": f"M={M} K={K} N={N} t3={t3}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib}
-    return entry
+        log(f"gemm M={M} K={K} N={N} t3={t3}: bound_ms {b:.4f} ({by})")
+        if (K, N) == (896, 4864):
+            entries.append({"name": "mx_gemm_packed",
+                            "shape": f"M={M} K={K} N={N} t3={t3}",
+                            "max_abs_err": err, **t, "bound_ms": b,
+                            "bound_by": by})
+    return entries
 
 
 def _paged_pool(torch, dev, gen, n_pages, P, D, fmt):
@@ -198,7 +269,7 @@ def _sdpa_inputs(torch, kc, ks, vc, vs, bt, fmt, kvh, Dh, G):
 
 def check_decode(torch, dev, gen):
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, packing, ref
     B, H, kvh, Dh, P, maxp = 4, 14, 2, 64, 1024, 2
     D, G, n_pages = kvh * Dh, H // kvh, 1 + 4 * maxp
     kv_len = [1330, 1180, 250, 140]
@@ -221,31 +292,32 @@ def check_decode(torch, dev, gen):
                 raise AssertionError(f"mx_flash_decode_paged disagrees with "
                                      f"its plain version ({fmt}, window "
                                      f"{window})")
-            if fmt != "mxfp8" or window:
+            if window:
                 continue
-            ms = cuda_ms(torch, lambda: ops.mx_flash_decode_paged(
-                q, kc, ks, vc, vs, bt, qp, kl, fmt), 200)
-            plain = cuda_ms(torch, lambda: ref.mx_attention_paged_ref(
-                q, kc, ks, vc, vs, bt, qp, kl, fmt), 20)
             kd, vd = _sdpa_inputs(torch, kc, ks, vc, vs, bt, fmt, kvh, Dh, G)
             S = kd.shape[2]
             kp = torch.arange(S, device=dev)
             mask = (kp[None, :] < kl[:, None].long())[:, None, None, :]
             q4 = q[:, :, None, :].contiguous()
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask), 200)
-            row = D + D // 32          # mxfp8: one code byte per feature
+            t = timed(torch, f"decode {fmt} B={B} kv_len={kv_len}",
+                      lambda: ops.mx_flash_decode_paged(
+                          q, kc, ks, vc, vs, bt, qp, kl, fmt),
+                      lambda: ref.mx_attention_paged_ref(
+                          q, kc, ks, vc, vs, bt, qp, kl, fmt),
+                      lambda: F.scaled_dot_product_attention(
+                          q4, kd, vd, attn_mask=mask), 200, 20)
+            row = D * packing.kv_fmt_bits(fmt) // 8 + D // 32
             nbytes = (2 * B * H * Dh * 4 + 2 * sum(kv_len) * row
                       + bt.numel() * 4 + 2 * B * 4)
             b, by = bound_ms(nbytes, 4.0 * H * Dh * sum(kv_len), PEAK_BF16)
-            log(f"decode {fmt} B={B} kv_len={kv_len}: kernel_ms {ms:.4f} "
-                f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-                f"{b:.4f} ({by})")
-            entry = {"name": "mx_flash_decode_paged",
-                     "shape": f"B={B} H={H} kvh={kvh} Dh={Dh} P={P} "
-                              f"kv_len={kv_len} {fmt}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib}
+            log(f"decode {fmt} B={B} kv_len={kv_len}: bound_ms {b:.4f} "
+                f"({by})")
+            if fmt == "mxfp8":
+                entry = {"name": "mx_flash_decode_paged",
+                         "shape": f"B={B} H={H} kvh={kvh} Dh={Dh} P={P} "
+                                  f"kv_len={kv_len} {fmt}",
+                         "max_abs_err": err, **t, "bound_ms": b,
+                         "bound_by": by}
     return entry
 
 
@@ -278,10 +350,6 @@ def check_prefill(torch, dev, gen):
                                  f"version ({fmt}, q_start {starts})")
         if fmt != "mxfp8" or starts[1] != 1024:
             continue
-        ms = cuda_ms(torch, lambda: ops.mx_flash_prefill(
-            q, kd, vd, kc, ks, vc, vs, bt, st, kl, fmt), 5)
-        plain = cuda_ms(torch, lambda: ref.mx_prefill_ref(
-            q, kd, vd, kc, ks, vc, vs, bt, st, kl, fmt), 3)
         # library yardstick: SDPA over the decoded logical cache, with the
         # chunk's round-tripped rows in place and a causal + fill mask
         from repro_torch.kernels import packing
@@ -299,21 +367,24 @@ def check_prefill(torch, dev, gen):
         mask = ((kp[None, None, :] <= qpos[:, :, None])
                 & (kp[None, None, :] < kl[:, None, None].long()))[:, None]
         qh = q.transpose(1, 2).contiguous()
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask), 5)
+        t = timed(torch, f"prefill {fmt} B={B} C={C} q_start={starts}",
+                  lambda: ops.mx_flash_prefill(q, kd, vd, kc, ks, vc, vs, bt,
+                                               st, kl, fmt),
+                  lambda: ref.mx_prefill_ref(q, kd, vd, kc, ks, vc, vs, bt,
+                                             st, kl, fmt),
+                  lambda: F.scaled_dot_product_attention(
+                      qh, kh, vh, attn_mask=mask), 5, 3)
         row = D + D // 32
         nbytes = (2 * B * C * H * Dh * 4 + 2 * B * C * D * 4
                   + 2 * B * C * row + 2 * sum(starts) * row + bt.numel() * 4)
         keys = sum(C * s + C * (C + 1) // 2 for s in starts)
         b, by = bound_ms(nbytes, 4.0 * H * Dh * keys, PEAK_BF16)
-        log(f"prefill {fmt} B={B} C={C} q_start={starts}: kernel_ms {ms:.4f} "
-            f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} "
+        log(f"prefill {fmt} B={B} C={C} q_start={starts}: bound_ms {b:.4f} "
             f"({by})")
         entry = {"name": "mx_flash_prefill",
                  "shape": f"B={B} C={C} H={H} kvh={kvh} Dh={Dh} P={P} "
                           f"q_start={starts} {fmt}",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": lib}
+                 "max_abs_err": err, **t, "bound_ms": b, "bound_by": by}
     return entry
 
 
@@ -346,12 +417,8 @@ def check_flash_decode(torch, dev, gen):
                 raise AssertionError(f"mx_flash_decode disagrees with its "
                                      f"plain version ({fmt}, window "
                                      f"{window})")
-            if fmt != "mxfp8" or window:
+            if window:
                 continue
-            ms = cuda_ms(torch, lambda: ops.mx_flash_decode(
-                q, kc, ks, vc, vs, qp, kl, fmt), 200)
-            plain = cuda_ms(torch, lambda: ref.mx_attention_ref(
-                q, kc, ks, vc, vs, qp, kl, fmt), 20)
 
             def heads(c, sc):
                 t = packing.kv_decode(c, sc, fmt).reshape(B, S, kvh, Dh)
@@ -361,19 +428,25 @@ def check_flash_decode(torch, dev, gen):
             kp = torch.arange(S, device=dev)
             mask = (kp[None, :] < kl[:, None].long())[:, None, None, :]
             q4 = q[:, :, None, :].contiguous()
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask), 200)
-            row = D + D // 32          # mxfp8: one code byte per feature
+            t = timed(torch, f"flash_decode {fmt} B={B} S={S} "
+                             f"kv_len={kv_len}",
+                      lambda: ops.mx_flash_decode(q, kc, ks, vc, vs, qp, kl,
+                                                  fmt),
+                      lambda: ref.mx_attention_ref(q, kc, ks, vc, vs, qp, kl,
+                                                   fmt),
+                      lambda: F.scaled_dot_product_attention(
+                          q4, kd, vd, attn_mask=mask), 200, 20)
+            row = D * packing.kv_fmt_bits(fmt) // 8 + D // 32
             nbytes = 2 * B * H * Dh * 4 + 2 * sum(kv_len) * row + 2 * B * 4
             b, by = bound_ms(nbytes, 4.0 * H * Dh * sum(kv_len), PEAK_BF16)
-            log(f"flash_decode {fmt} B={B} S={S} kv_len={kv_len}: kernel_ms "
-                f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-                f"bound_ms {b:.4f} ({by})")
-            entry = {"name": "mx_flash_decode",
-                     "shape": f"B={B} H={H} kvh={kvh} Dh={Dh} S={S} "
-                              f"kv_len={kv_len} {fmt}",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib}
+            log(f"flash_decode {fmt} B={B} S={S} kv_len={kv_len}: bound_ms "
+                f"{b:.4f} ({by})")
+            if fmt == "mxfp8":
+                entry = {"name": "mx_flash_decode",
+                         "shape": f"B={B} H={H} kvh={kvh} Dh={Dh} S={S} "
+                                  f"kv_len={kv_len} {fmt}",
+                         "max_abs_err": err, **t, "bound_ms": b,
+                         "bound_by": by}
     return entry
 
 
@@ -407,22 +480,21 @@ def check_quantizers(torch, dev, gen):
                                          f"bytes differ from the plain "
                                          f"version")
             iters = 200 if M == 4 else 20
-            ms = cuda_ms(torch, lambda: kernel(x, "mxfp4"), iters)
-            plain = cuda_ms(torch, lambda: plain_fn(x, "mxfp4"),
-                            max(iters // 4, 5))
+            log(f"{name} ({M}, {K}): codes and scales byte-equal to the "
+                f"plain version in {', '.join(MX_FMTS)}")
+            t = timed(torch, f"{name} ({M}, {K}) mxfp4",
+                      lambda: kernel(x, "mxfp4"),
+                      lambda: plain_fn(x, "mxfp4"), None, iters,
+                      max(iters // 4, 5))
             nbytes = M * K * 4 + M * K + M * (K // 32) * 4
             flops = M * K * (2 + (64 if t3 else 0))
             b, by = bound_ms(nbytes, flops, PEAK_F32)
-            log(f"{name} ({M}, {K}): codes and scales byte-equal to the "
-                f"plain version in {', '.join(MX_FMTS)}; mxfp4 kernel_ms "
-                f"{ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
-                f"{b:.4f} ({by})")
+            log(f"{name} ({M}, {K}): bound_ms {b:.4f} ({by})")
             if M == 4096:
                 entries.append({
                     "name": name, "shape": f"M={M} K={K} mxfp4 (bytes "
                     f"checked in {'/'.join(MX_FMTS)})", "max_abs_err": 0.0,
-                    "ms": ms, "plain_ms": plain, "bound_ms": b,
-                    "bound_by": by, "library_ms": None})
+                    **t, "bound_ms": b, "bound_by": by})
     return entries
 
 
@@ -452,22 +524,21 @@ def check_unpacked_gemm(torch, dev, gen):
                 raise AssertionError(f"mx_gemm disagrees with its plain "
                                      f"version at M={M} {fmt}")
             iters = 200 if M == 4 else 20
-            ms = cuda_ms(torch, lambda: ops.mx_gemm(x, wc, ws, fmt), iters)
-            plain = cuda_ms(torch, lambda: ref.mx_matmul_ref(x, wc, ws, fmt),
-                            max(iters // 4, 5))
             xq = mxlib.quantize(x, mxlib.MXConfig(fmt=fmt))
             wd = ref.mx_dequant_ref(wc.T, ws.T, fmt).T.contiguous()
-            lib = cuda_ms(torch, lambda: torch.matmul(xq, wd), iters)
+            t = timed(torch, f"mx_gemm M={M} K={K} N={N} {fmt}",
+                      lambda: ops.mx_gemm(x, wc, ws, fmt),
+                      lambda: ref.mx_matmul_ref(x, wc, ws, fmt),
+                      lambda: torch.matmul(xq, wd), iters,
+                      max(iters // 4, 5))
             nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
             b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
-            log(f"mx_gemm M={M} K={K} N={N} {fmt}: kernel_ms {ms:.4f} "
-                f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-                f"{b:.4f} ({by})")
+            log(f"mx_gemm M={M} K={K} N={N} {fmt}: bound_ms {b:.4f} ({by})")
             if (M, fmt) == (4096, "mxfp4"):
                 entry = {"name": "mx_gemm",
                          "shape": f"M={M} K={K} N={N} {fmt}",
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": b, "bound_by": by, "library_ms": lib}
+                         "max_abs_err": err, **t, "bound_ms": b,
+                         "bound_by": by}
     return entry
 
 
@@ -511,6 +582,44 @@ def profile_serving(torch, eng, Request, cfg, seed: int, label: str) -> None:
         f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel names")
     for ms, n, key in rows[:15]:
         log(f"profile {label}: {ms:10.3f} ms {n:7d}x  {key[:90]}")
+
+
+def decode_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
+                      seed: int) -> None:
+    """Host against device time of one decode step at the wave's shape:
+    four lanes prefilled with 1324 tokens into a 2048-row cache, then
+    fused decode steps. The wall time per step (synchronized after each)
+    against the device time the profiler records per step: their
+    difference is what the host adds."""
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1324))
+                           .astype(np.int32), device=dev)
+    lg, cache = transformer.prefill(params, cfg, toks, qm, max_len=2048,
+                                    kv_quant=kv_quant)
+    state = {"tok": lg.argmax(dim=-1).to(torch.int32), "pos": 1324,
+             "cache": cache}
+
+    def step():
+        lg, state["cache"] = transformer.decode(params, cfg, state["cache"],
+                                                state["tok"], state["pos"],
+                                                qm)
+        state["tok"] = lg.argmax(dim=-1).to(torch.int32)
+        state["pos"] += 1
+
+    n = 10
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    busy = device_ms(torch, step, n, warmup=0, exact=False)
+    log(f"decode step, wave shape (4 lanes at fill 1337+, contiguous mxfp8, "
+        f"fused, {cfg.n_layers} layers): wall {wall:.3f} ms, device "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy), host adds "
+        f"{wall - busy:.3f} ms")
 
 
 def serve(torch, Engine, Request, art, prompts, cfg, **kw):
@@ -590,6 +699,8 @@ def end_to_end(torch, dev, seed: int):
                                   1 + st["decode_steps"], "wave")
         launches["wave"] = lw
         profile_serving(torch, eng, Request, cfg, seed, "wave/contiguous")
+        decode_step_split(torch, transformer, params, cfg,
+                          qm.with_backend("fused"), eng.kv_quant, dev, seed)
         del eng
 
         eng, _, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
@@ -819,7 +930,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_facts(torch, build)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    entries = [check_gemm(torch, dev, gen), check_prefill(torch, dev, gen),
+    entries = [*check_gemm(torch, dev, gen), check_prefill(torch, dev, gen),
                check_decode(torch, dev, gen), check_flash_decode(torch, dev,
                                                                  gen),
                *check_quantizers(torch, dev, gen),

@@ -12,9 +12,12 @@ whose register and spill report is printed. Each kernel then runs
 through its ``ops`` wrapper on the same inputs as in ``chip_smoke.py`` (a
 wrapper's launch goes to whichever build is loaded), in the order other,
 this, this, other, ``--rounds`` times, so both builds see the same
-clocks. The last line is a JSON object with every time, in
-ms by CUDA events, and the largest difference between the two builds'
-outputs.
+clocks. A build whose flash-decode entries still have the C signature
+without the split scratch (before the split-key decode) is called through
+an adapter that drops the new arguments. The last line is a JSON object
+with every time — device ms from ``torch.profiler`` and ms per call by
+CUDA events, wrapper included — and the largest difference between the
+two builds' outputs.
 """
 from __future__ import annotations
 
@@ -31,6 +34,19 @@ SOURCES = {"mx_gemm_packed": "mx_gemm", "mx_flash_prefill": "mx_prefill",
            "mx_flash_decode_paged": "mx_decode_paged",
            "mx_flash_decode": "mx_decode", "mx_quant": "mx_quant",
            "hadamard_quant": "mx_quant", "mx_gemm": "mx_matmul"}
+_C, _I = ctypes.c_void_p, ctypes.c_int
+# entry -> (argument types of the signature before the split-key decode,
+# position of the scratch pointer the current signature added before
+# ``out``); the current one also appends (chunk, nsplit) before the stream
+UNSPLIT_DECODE = {"mx_flash_decode": ([_C] * 8 + [_I] * 7 + [_C], 7),
+                  "mx_flash_decode_paged": ([_C] * 9 + [_I] * 8 + [_C], 8)}
+
+
+def _unsplit_adapter(fn, part_at: int):
+    """Call an older flash-decode entry with the current arguments."""
+    def call(*a):
+        return fn(*(a[:part_at] + a[part_at + 1:-3] + a[-1:]))
+    return call
 
 
 def compile_tree(build, csrc: pathlib.Path, tag: str) -> dict:
@@ -61,8 +77,13 @@ def compile_tree(build, csrc: pathlib.Path, tag: str) -> dict:
             continue
         _, sym, argtypes = build._ENTRIES[entry]
         fn = getattr(ctypes.CDLL(str(procs[src][1])), sym)
+        unsplit = (entry in UNSPLIT_DECODE and "nsplit"
+                   not in (csrc / f"{src}.cu").read_text())
+        if unsplit:
+            argtypes = UNSPLIT_DECODE[entry][0]
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[entry] = fn
+        fns[entry] = (_unsplit_adapter(fn, UNSPLIT_DECODE[entry][1])
+                      if unsplit else fn)
     return fns
 
 
@@ -70,8 +91,9 @@ def cases(torch, dev, gen):
     """(label, entry, call) at chip_smoke.py's timed shapes."""
     from repro_torch.kernels import ops, packing, ref
     out = []
-    for M, K, N, t3 in ((4, 896, 4864, False), (4096, 896, 4864, False),
-                        (4096, 4864, 896, True)):
+    for M, K, N, t3 in ((4, 896, 896, False), (4, 896, 128, False),
+                        (4, 896, 4864, False), (4, 4864, 896, True),
+                        (4096, 896, 4864, False), (4096, 4864, 896, True)):
         x = torch.randn(M, K, generator=gen, device=dev)
         pw = packing.PackedWeight.from_dense(
             torch.randn(K, N, generator=gen, device=dev) / K ** 0.5)
@@ -156,21 +178,30 @@ def main(argv=None) -> int:
     for label, entry, iters, call in cases(torch, dev, gen):
         if not all(entry in b for b in builds.values()):
             continue
-        times, outs = {"other": [], "this": []}, {}
+        times = {"other": [], "this": []}
+        dev_times = {"other": [], "this": []}
+        outs = {}
         for _ in range(args.rounds):
             for tag in ("other", "this", "this", "other"):
                 build._libs[entry] = builds[tag][entry]
+                dev_times[tag].append(cs.device_ms(torch, call, iters))
                 times[tag].append(cs.cuda_ms(torch, call, iters))
                 outs[tag] = call()
         torch.cuda.synchronize()
         diff = (outs["this"].float()
                 - outs["other"].float()).abs().max().item()
         mean = {t: sum(v) / len(v) for t, v in times.items()}
-        cs.log(f"{label}: other {mean['other']:.4f} ms, this "
-               f"{mean['this']:.4f} ms ({mean['this'] / mean['other']:.3f}x), "
+        dmean = {t: sum(v) / len(v) for t, v in dev_times.items()}
+        cs.log(f"{label}: device other {dmean['other']:.4f} ms, this "
+               f"{dmean['this']:.4f} ms "
+               f"({dmean['this'] / dmean['other']:.3f}x); per call, wrapper "
+               f"included, other {mean['other']:.4f} ms, this "
+               f"{mean['this']:.4f} ms ({mean['this'] / mean['other']:.3f}x); "
                f"max |this - other| {diff:.3e}")
         result["kernels"].append({"case": label, "ms": times,
-                                  "mean_ms": mean, "max_abs_diff": diff})
+                                  "mean_ms": mean, "device_ms": dev_times,
+                                  "mean_device_ms": dmean,
+                                  "max_abs_diff": diff})
     build._libs.clear()
     print(json.dumps(result))
     return 0

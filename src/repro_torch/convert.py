@@ -10,15 +10,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import devices
 from repro_torch.kernels.packing import PackedWeight
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """Nested dict of numpy arrays -> the port's parameter tree on
-    ``device``. A packed weight arrives as an object or dict carrying
-    ``codes_packed`` and ``scales_e8m0`` arrays (and optionally ``fmt`` /
-    ``dtype``) and becomes a ``PackedWeight``; every other leaf becomes a
-    tensor of its own dtype."""
+    ``device`` (the card unless the caller names another). A packed weight
+    arrives as an object or dict carrying ``codes_packed`` and
+    ``scales_e8m0`` arrays (and optionally ``fmt`` / ``dtype``) and becomes
+    a ``PackedWeight``; every other leaf becomes a tensor of its own
+    dtype."""
+    device = devices.resolve(device)
     if isinstance(tree, dict) and "codes_packed" not in tree:
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     get = tree.get if isinstance(tree, dict) else (

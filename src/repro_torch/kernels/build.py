@@ -91,10 +91,10 @@ _ENTRIES = {
     "hadamard_quant": ("mx_quant", "hadamard_quant_launch",
                        [_C] * 3 + [_I] * 3 + [_C]),
     "mx_flash_decode": ("mx_decode", "mx_flash_decode_launch",
-                        [_C] * 8 + [_I] * 7 + [_C]),
+                        [_C] * 9 + [_I] * 9 + [_C]),
     "mx_flash_decode_paged": ("mx_decode_paged",
                               "mx_flash_decode_paged_launch",
-                              [_C] * 9 + [_I] * 8 + [_C]),
+                              [_C] * 10 + [_I] * 10 + [_C]),
     "mx_flash_prefill": ("mx_prefill", "mx_flash_prefill_launch",
                          [_C] * 15 + [_I] * 9 + [_C]),
 }

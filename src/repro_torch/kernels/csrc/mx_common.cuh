@@ -113,6 +113,14 @@ __device__ __forceinline__ int quant_code(int fmt, float x, float scale) {
   return fmt_center<kFp6>(fmt) + (z < 0.0f ? -idx : idx);
 }
 
+// Entry H[b][c] of the Sylvester-ordered Hadamard H32 of the T3 rotation:
+// +-f32(1/sqrt(32)), negative where b & c has an odd number of bits; in f64,
+// where its products with f32 values are exact.
+__device__ __forceinline__ double h32_coef(int b, int c) {
+  const double h = (double)(float)(1.0 / sqrt(32.0));
+  return (__popc(b & c) & 1) ? -h : h;
+}
+
 // Encode one 32-block in place of the Pallas tile bodies: with ``t3`` the
 // block is first rotated by the Sylvester-ordered Hadamard H32 (entries
 // +-f32(1/sqrt(32)); y_c = sum_b v_b H[b][c], products exact in f64, one
@@ -124,14 +132,13 @@ template <bool kFp6 = false>
 __device__ __forceinline__ int mx_encode_block(int fmt, float (&v)[32],
                                                bool t3, int (&code)[32]) {
   if (t3) {
-    const double h = (double)(float)(1.0 / sqrt(32.0));
     float y[32];
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       double acc = 0.0;
 #pragma unroll
       for (int b = 0; b < 32; ++b)
-        acc = fma((double)v[b], (__popc(b & c) & 1) ? -h : h, acc);
+        acc = fma((double)v[b], h32_coef(b, c), acc);
       y[c] = (float)acc;
     }
 #pragma unroll

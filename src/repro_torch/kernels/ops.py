@@ -13,6 +13,8 @@ package.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import mx as _mx
@@ -183,13 +185,25 @@ def _gemm_contract(x, w_packed, w_scales_e8m0, fmt) -> None:
             f"w_scales_e8m0 (*lead, K//32, N) with K % 32 == 0.")
 
 
+# csrc/mx_gemm.cu: M up to this runs the small-M (decode) kernel
+GEMV_MAX_M = 16
+
+
+def _gemm_scratch_bytes(M: int, K: int) -> int:
+    """Bytes of ``mx_gemm_packed_launch``'s scratch: the encoded
+    activations (M, K), bf16 for the tile path and f32 for the small-M
+    kernel's prepass."""
+    return (4 if M <= GEMV_MAX_M else 2) * M * K
+
+
 def _gemm_2d(x, w_packed, w_scales_e8m0, fmt, t3):
     M, K = x.shape
     N = w_packed.shape[1]
     x = _aligned(x, torch.float32)
     wp = w_packed.contiguous()
     ws = w_scales_e8m0.contiguous()
-    xq = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
+    xq = torch.empty(_gemm_scratch_bytes(M, K), dtype=torch.uint8,
+                     device=x.device)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = build.kernel("mx_gemm_packed")(_ptr(x), _ptr(xq), _ptr(wp),
                                         _ptr(ws), _ptr(y), M, N, K,
@@ -221,6 +235,41 @@ def mx_gemm_packed(x, w_packed, w_scales_e8m0, fmt: str = "mxfp4",
     wss = w_scales_e8m0.reshape(-1, *w_scales_e8m0.shape[-2:])
     ys = [_gemm_2d(xs[i], wps[i], wss[i], fmt, t3) for i in range(len(xs))]
     return torch.stack(ys).reshape(*lead, *ys[0].shape)
+
+
+# ----------------------------------------------------------------------
+# Flash decode: the split of a lane's keys over blocks
+# ----------------------------------------------------------------------
+
+DECODE_TILE = 64       # csrc/mx_decode.cuh TK: keys per tile
+
+
+def decode_splits(limit: int, B: int, kvh: int, sms: int):
+    """Split of each lane's keys for the flash-decode kernels: ``(nsplit,
+    chunk)`` with keys [s*chunk, (s+1)*chunk) in split s, ``chunk`` a
+    multiple of DECODE_TILE and ``nsplit * chunk >= limit`` (no split past
+    the last row). ``limit`` is the layout's row count per lane (S of the
+    contiguous cache, maxp * P of the pool). Chosen from these static sizes
+    only, never from the fills, which live on the card: about two blocks
+    (lane, KV head, split) per SM, at least one tile per split."""
+    tiles = max(1, -(-limit // DECODE_TILE))
+    want = max(1, -(-2 * sms // (B * kvh)))
+    chunk = DECODE_TILE * -(-tiles // min(want, tiles))
+    return max(1, -(-limit // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_scratch(limit, B, H, Dh, kvh, dev):
+    """(nsplit, chunk, f32 scratch of the per-split partials)."""
+    nsplit, chunk = decode_splits(limit, B, kvh, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    part = torch.empty(B * H * nsplit * (Dh + 2), dtype=torch.float32,
+                       device=dev)
+    return nsplit, chunk, part
 
 
 # ----------------------------------------------------------------------
@@ -277,13 +326,14 @@ def mx_flash_decode(q, k_codes, k_scales, v_codes, v_scales, q_pos, kv_len,
     qf = q.float().contiguous()
     qp = _lane_vec(q_pos, B, dev)
     kl = _lane_vec(kv_len, B, dev)
-    kc, ks, vc, vs = (t.contiguous() for t in (k_codes, k_scales, v_codes,
-                                                v_scales))
+    kc, vc = _aligned(k_codes, torch.uint8), _aligned(v_codes, torch.uint8)
+    ks, vs = k_scales.contiguous(), v_scales.contiguous()
+    nsplit, chunk, part = _decode_scratch(S, B, H, Dh, D // Dh, dev)
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
     rc = build.kernel("mx_flash_decode")(
         _ptr(qf), _ptr(kc), _ptr(ks), _ptr(vc), _ptr(vs), _ptr(qp),
-        _ptr(kl), _ptr(out), B, H, Dh, D, S, _fmt_id(fmt), int(window),
-        _stream())
+        _ptr(kl), _ptr(part), _ptr(out), B, H, Dh, D, S, _fmt_id(fmt),
+        int(window), chunk, nsplit, _stream())
     _check(rc, "mx_flash_decode")
     launches["mx_flash_decode"] += 1
     return out
@@ -349,13 +399,15 @@ def mx_flash_decode_paged(q, k_codes, k_scales, v_codes, v_scales,
     bt = block_tables.to(torch.int32).contiguous()
     qp = _lane_vec(q_pos, B, dev)
     kl = _lane_vec(kv_len, B, dev)
-    kc, ks, vc, vs = (t.contiguous() for t in (k_codes, k_scales, v_codes,
-                                                v_scales))
+    kc, vc = _aligned(k_codes, torch.uint8), _aligned(v_codes, torch.uint8)
+    ks, vs = k_scales.contiguous(), v_scales.contiguous()
+    maxp = bt.shape[1]
+    nsplit, chunk, part = _decode_scratch(maxp * P, B, H, Dh, D // Dh, dev)
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
     rc = build.kernel("mx_flash_decode_paged")(
         _ptr(qf), _ptr(kc), _ptr(ks), _ptr(vc), _ptr(vs), _ptr(bt),
-        _ptr(qp), _ptr(kl), _ptr(out), B, H, Dh, D, P, bt.shape[1],
-        _fmt_id(fmt), int(window), _stream())
+        _ptr(qp), _ptr(kl), _ptr(part), _ptr(out), B, H, Dh, D, P, maxp,
+        _fmt_id(fmt), int(window), chunk, nsplit, _stream())
     _check(rc, "mx_flash_decode_paged")
     launches["mx_flash_decode_paged"] += 1
     return out

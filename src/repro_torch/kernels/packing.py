@@ -304,8 +304,11 @@ class PagedKV:
 
     @classmethod
     def zeros(cls, shape, fmt: str = "none", dtype=torch.float32,
-              device="cpu") -> "PagedKV":
-        """Fresh pool of logical dense ``shape`` (*lead, N, P, D)."""
+              device=None) -> "PagedKV":
+        """Fresh pool of logical dense ``shape`` (*lead, N, P, D); on the
+        card unless ``device`` says otherwise."""
+        from repro_torch import devices
+        device = devices.resolve(device)
         *lead, n, p, d = shape
         dname = str(torch_dtype(dtype)).replace("torch.", "")
         if fmt == "none":

@@ -163,3 +163,21 @@ print("ok")
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ("PagedKV.zeros", "params_from_numpy"))
+def test_pool_and_weight_constructors_default_to_the_card(monkeypatch,
+                                                          entry):
+    """A fresh paged pool and a parameter tree handed over from numpy land
+    on the card unless the caller names a device: with no card they raise
+    instead of running on the CPU."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.kernels.packing import PagedKV
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"PagedKV.zeros": lambda: PagedKV.zeros((2, 16, 64), "mxfp8"),
+            "params_from_numpy": lambda: convert.params_from_numpy(
+                {"embed": np.zeros((4, 8), np.float32)})}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

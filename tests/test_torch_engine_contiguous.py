@@ -56,7 +56,7 @@ def _jax_tree(tree):
 @pytest.fixture(scope="module")
 def bench_params():
     tree = _checkpoint()
-    return _jax_tree(tree), convert.params_from_numpy(tree)
+    return _jax_tree(tree), convert.params_from_numpy(tree, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -117,3 +117,122 @@ def test_cuda_contiguous_flash_decode_matches_plain_version(cuda_device,
         ref = tref.mx_attention_ref(q, kc, ks, vc, vs, kl - 1, kl, fmt,
                                     window=window)
         assert (out - ref).abs().max() <= 1e-5
+
+
+# The small-M (decode) GEMM: every M up to ops.GEMV_MAX_M runs it, M + 1 the
+# tile. Qwen2-0.5B's four decode projections, and widths that are not a
+# multiple of 16 (byte-wise loads instead of 16-byte lines).
+GEMV_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 136),
+               (896, 4872))
+GEMV_MS = (1, 2, 3, 4, 5, tops.GEMV_MAX_M, tops.GEMV_MAX_M + 1)
+
+
+def _gemm_operands(dev, M, K, N, fmt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    return x, PackedWeight.from_dense(w, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t3", (False, True))
+@pytest.mark.parametrize("fmt", ("mxfp4", "mxint4"))
+@pytest.mark.parametrize("K,N", GEMV_SHAPES)
+@pytest.mark.parametrize("M", GEMV_MS)
+def test_cuda_small_m_gemm_matches_plain_version(cuda_device, M, K, N, fmt,
+                                                 t3):
+    x, pw = _gemm_operands(cuda_device, M, K, N, fmt, 4)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, fmt, t3=t3)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0, fmt,
+                                   t3=t3)
+    assert y.shape == (M, N)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,t3", ((896, 896, False), (896, 128, False),
+                                    (896, 4864, False), (4864, 896, True)))
+def test_cuda_small_m_gemm_is_bitwise_repeatable(cuda_device, K, N, t3):
+    """Split-K partials are summed in a fixed order: two calls agree bit for
+    bit."""
+    x, pw = _gemm_operands(cuda_device, 4, K, N, "mxfp4", 5)
+    y1 = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    y2 = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    assert torch.equal(y1, y2)
+
+
+# MLP widths of larger configurations of the JAX package (Qwen2-7B,
+# InternVL2-26B, DeepSeek-67B): a split of K holds more MX blocks than the
+# kernel stages in shared memory at once, so it walks K in chunks.
+LARGE_GEMV_SHAPES = ((3584, 18944, False), (18944, 3584, True),
+                     (6144, 16384, False), (8192, 22016, False),
+                     (22016, 8192, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,t3", LARGE_GEMV_SHAPES)
+def test_cuda_small_m_gemm_large_widths(cuda_device, K, N, t3):
+    x, pw = _gemm_operands(cuda_device, 4, K, N, "mxfp4", 7)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
+                                   t3=t3)
+    assert y.shape == (4, N)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert torch.equal(
+        y, tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3))
+
+
+def _decode_case(dev, case, fmt, layout, Dh=64, seed=6):
+    """q, the packed KV of ``layout`` and the plain version's output, for a
+    case of test_torch_split_decode.CASES."""
+    from test_torch_split_decode import CASES, S
+    fills, window, G = CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, kvh = len(fills), 2
+    kl = torch.tensor(fills, dtype=torch.int32, device=dev)
+    q = torch.randn(B, kvh * G, Dh, generator=g, device=dev)
+    if layout == "contiguous":
+        kc, ks = kv_encode(torch.randn(B, S, kvh * Dh, generator=g,
+                                       device=dev), fmt)
+        vc, vs = kv_encode(torch.randn(B, S, kvh * Dh, generator=g,
+                                       device=dev), fmt)
+        args = (q, kc, ks, vc, vs, kl - 1, kl, fmt)
+        return (tops.mx_flash_decode(*args, window=window),
+                tref.mx_attention_ref(*args, window=window))
+    P, maxp = 16, S // 16
+    n_pages = 1 + B * maxp
+    kc, ks = kv_encode(torch.randn(n_pages, P, kvh * Dh, generator=g,
+                                   device=dev), fmt)
+    vc, vs = kv_encode(torch.randn(n_pages, P, kvh * Dh, generator=g,
+                                   device=dev), fmt)
+    bt = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).reshape(
+        B, maxp).to(torch.int32)
+    for b, f in enumerate(fills):
+        bt[b, -(-f // P):] = 0
+    args = (q, kc, ks, vc, vs, bt, kl - 1, kl, fmt)
+    return (tops.mx_flash_decode_paged(*args, window=window),
+            tref.mx_attention_paged_ref(*args, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("contiguous", "paged"))
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxint8", "mxfp4", "mxint4"))
+@pytest.mark.parametrize("case", ("short", "long", "window", "g1",
+                                  "one-short-lane"))
+def test_cuda_split_decode_matches_plain_version(cuda_device, case, fmt,
+                                                 layout):
+    """Both flash-decode layouts against their plain versions: fills of 1,
+    63, 64, 65, 1330 and the full 2048 rows, a window that empties whole
+    splits, G = 7 and G = 1, one lane far shorter than the rest."""
+    out, ref = _decode_case(cuda_device, case, fmt, layout)
+    assert (out - ref).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("contiguous", "paged"))
+@pytest.mark.parametrize("Dh", (16, 32, 128))
+def test_cuda_split_decode_head_widths(cuda_device, Dh, layout):
+    """One load item per key row slice (Dh = 16) up to eight (Dh = 128)."""
+    for fmt in ("mxfp8", "mxfp4"):
+        out, ref = _decode_case(cuda_device, "long", fmt, layout, Dh=Dh)
+        assert (out - ref).abs().max() <= 1e-5

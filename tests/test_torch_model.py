@@ -87,7 +87,7 @@ def _close(a, b, rel):
 def bench():
     np_params = _bench_params()
     return np_params, _jax_tree(np_params), convert.params_from_numpy(
-        np_params)
+        np_params, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -377,7 +377,7 @@ def test_artifact_loads_byte_equal_and_serves(bench, jax_artifact):
     np.testing.assert_array_equal(tp["embed"].numpy(),
                                   np.asarray(jp["embed"]))
     # the same weights handed over in memory
-    conv = convert.params_from_numpy(_numpy_tree(jp))
+    conv = convert.params_from_numpy(_numpy_tree(jp), device="cpu")
     assert torch.equal(conv["blocks"]["wd"].codes_packed,
                        tp["blocks"]["wd"].codes_packed)
     toks = _tokens(2, (2, 48))

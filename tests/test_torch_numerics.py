@@ -91,7 +91,7 @@ def test_kv_encode_decode_match(fmt):
 def test_paged_pool_zeros_and_gather(fmt):
     shape = (6, 8, 64)
     pj = jpk.PagedKV.zeros(shape, fmt)
-    pt = tpk.PagedKV.zeros(shape, fmt)
+    pt = tpk.PagedKV.zeros(shape, fmt, device="cpu")
     np.testing.assert_array_equal(pt.codes.numpy(), np.asarray(pj.codes))
     x = _x(4, shape)
     if fmt != "none":
