@@ -9,9 +9,10 @@ Phases, in order (each raises on failure; nothing is caught):
    the build of the six CUDA sources in ``src/repro_torch/kernels/csrc``;
 2. kernels: each of the seven kernels against its plain PyTorch version on
    the card, at the Qwen2-0.5B shapes of the serving path (the packed GEMM
-   at the decode shape M = 4 and the prefill shape M = 4096), with the
-   times of the kernel, the plain version and one PyTorch library call
-   (where one computes the same function) — device time from
+   at the decode shape M = 4, the prefill shape M = 4096, and the main
+   path's chunk and wave prefill rows, M = 1024 and 5296, at (896, 4864)),
+   with the times of the kernel, the plain version and one PyTorch library
+   call (where one computes the same function) — device time from
    ``torch.profiler``, and per call with the wrapper included by CUDA
    events — and the least time the card could take (``bound_ms``);
 3. end to end: Qwen2-0.5B at its published widths (24 layers, random
@@ -22,8 +23,9 @@ Phases, in order (each raises on failure; nothing is caught):
    contiguous cache), the continuous scheduler on the contiguous cache,
    and the continuous scheduler on the paged cache with two requests that
    share a one-page prefix. A ``torch.profiler`` breakdown of a wave run
-   and of a paged run; the host and device time of a decode step at the
-   wave's shape; the first prefill and one decode step of each
+   and of a paged run; the host and device time of a decode step and of
+   a full prefill at the wave's shape; the first prefill and one decode
+   step of each
    layout again with every kernel call held against its plain version on
    the same inputs; the paged path's fused logits and greedy tokens
    compared with the reference backend's;
@@ -108,6 +110,13 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
     taken again. A whole decode step is thousands of operations, of which
     the profiler may drop a few (seen on an H100: 27711 to 27714 events for
     10 steps); it passes ``exact=False`` and takes the sum as recorded."""
+    return sum(device_split(torch, fn, iters, warmup, exact).values())
+
+
+def device_split(torch, fn, iters: int, warmup: int = 3,
+                 exact: bool = True) -> dict:
+    """:func:`device_ms` by kernel: {short kernel name (no namespace,
+    template arguments or parameters): mean device ms per call}."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -123,7 +132,14 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
                if e.device_type == torch.autograd.DeviceType.CUDA]
         counts.append(len(dev))
         if dev and (not exact or len(dev) % iters == 0):
-            return sum(e.device_time_total for e in dev) / 1e3 / iters
+            out: dict = {}
+            for e in dev:
+                name = e.name.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                name = name.split()[-1] if name.split() else e.name
+                out[name] = (out.get(name, 0.0)
+                             + e.device_time_total / 1e3 / iters)
+            return out
     raise AssertionError(f"the profiler's device events ({counts}) are not "
                          f"a multiple of the {iters} calls")
 
@@ -195,6 +211,8 @@ def check_gemm(torch, dev, gen):
     cases = [(m, k, n, t3) for m in (4, 4096)
              for (k, n, t3) in ((896, 896, False), (896, 128, False),
                                 (896, 4864, False), (4864, 896, True))]
+    # the main path's continuous chunk and wave (4 lanes x 1324) prefills
+    cases += [(1024, 896, 4864, False), (5296, 896, 4864, False)]
     entries = []
     for M, K, N, t3 in cases:
         x = torch.randn(M, K, generator=gen, device=dev)
@@ -227,8 +245,9 @@ def check_gemm(torch, dev, gen):
                   lambda: torch.matmul(xq, wd), iters, max(iters // 4, 5))
         nbytes = M * K * 4 + K * N // 2 + K * N // 32 + M * N * 4
         b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
-        log(f"gemm M={M} K={K} N={N} t3={t3}: bound_ms {b:.4f} ({by})")
-        if (K, N) == (896, 4864):
+        log(f"gemm M={M} K={K} N={N} t3={t3}: bound_ms {b:.4f} ({by}), "
+            f"share of the bound {b / t['ms']:.3f}")
+        if (K, N) == (896, 4864) and M in (4, 4096):
             entries.append({"name": "mx_gemm_packed",
                             "shape": f"M={M} K={K} N={N} t3={t3}",
                             "max_abs_err": err, **t, "bound_ms": b,
@@ -533,7 +552,8 @@ def check_unpacked_gemm(torch, dev, gen):
                       max(iters // 4, 5))
             nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
             b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
-            log(f"mx_gemm M={M} K={K} N={N} {fmt}: bound_ms {b:.4f} ({by})")
+            log(f"mx_gemm M={M} K={K} N={N} {fmt}: bound_ms {b:.4f} ({by}), "
+                f"share of the bound {b / t['ms']:.3f}")
             if (M, fmt) == (4096, "mxfp4"):
                 entry = {"name": "mx_gemm",
                          "shape": f"M={M} K={K} N={N} {fmt}",
@@ -622,6 +642,48 @@ def decode_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
         f"{wall - busy:.3f} ms")
 
 
+def prefill_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
+                       seed: int) -> None:
+    """Host against device time of one full prefill at the wave's shape:
+    four lanes of 1324 tokens into a 2048-row contiguous cache, fused, all
+    layers. The wall time per prefill (synchronized after each) against the
+    device time the profiler records for it, and that device time by
+    kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1324))
+                           .astype(np.int32), device=dev)
+
+    def run():
+        transformer.prefill(params, cfg, toks, qm, max_len=2048,
+                            kv_quant=kv_quant)
+
+    n = 3
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    gemm = sum(r[0] for r in rows if "mxgemm::" in r[2])
+    log(f"prefill step, wave shape (4 lanes x 1324 tokens, contiguous "
+        f"mxfp8, fused, {cfg.n_layers} layers): wall {wall:.3f} ms, device "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy), host adds "
+        f"{wall - busy:.3f} ms; the packed GEMM's two kernels {gemm:.3f} ms")
+    for ms, cnt, key in rows[:12]:
+        log(f"prefill step: {ms:9.3f} ms {cnt:5d}x  {key[:90]}")
+
+
 def serve(torch, Engine, Request, art, prompts, cfg, **kw):
     """One served run of ``prompts`` x 32 greedy tokens with the launch
     counts zeroed just before and read just after. Returns (engine,
@@ -701,6 +763,8 @@ def end_to_end(torch, dev, seed: int):
         profile_serving(torch, eng, Request, cfg, seed, "wave/contiguous")
         decode_step_split(torch, transformer, params, cfg,
                           qm.with_backend("fused"), eng.kv_quant, dev, seed)
+        prefill_step_split(torch, transformer, params, cfg,
+                           qm.with_backend("fused"), eng.kv_quant, dev, seed)
         del eng
 
         eng, _, lc, st = serve(torch, Engine, Request, art, prompts, cfg,

@@ -14,10 +14,12 @@ wrapper's launch goes to whichever build is loaded), in the order other,
 this, this, other, ``--rounds`` times, so both builds see the same
 clocks. A build whose flash-decode entries still have the C signature
 without the split scratch (before the split-key decode) is called through
-an adapter that drops the new arguments. The last line is a JSON object
-with every time — device ms from ``torch.profiler`` and ms per call by
-CUDA events, wrapper included — and the largest difference between the
-two builds' outputs.
+an adapter that drops the new arguments. Where a case launches more than
+one kernel (the GEMM's activation pass and its tile), its device time is
+also printed by kernel name. The last line is a JSON object with every
+time — device ms from ``torch.profiler``, in all and by kernel name, and
+ms per call by CUDA events, wrapper included — and the largest difference
+between the two builds' outputs.
 """
 from __future__ import annotations
 
@@ -93,7 +95,9 @@ def cases(torch, dev, gen):
     out = []
     for M, K, N, t3 in ((4, 896, 896, False), (4, 896, 128, False),
                         (4, 896, 4864, False), (4, 4864, 896, True),
-                        (4096, 896, 4864, False), (4096, 4864, 896, True)):
+                        (4096, 896, 896, False), (4096, 896, 128, False),
+                        (4096, 896, 4864, False), (4096, 4864, 896, True),
+                        (1024, 896, 4864, False), (5296, 896, 4864, False)):
         x = torch.randn(M, K, generator=gen, device=dev)
         pw = packing.PackedWeight.from_dense(
             torch.randn(K, N, generator=gen, device=dev) / K ** 0.5)
@@ -138,13 +142,14 @@ def cases(torch, dev, gen):
         out.append((f"{entry} M=4096 K=4864 mxfp4", entry, 20,
                     lambda fn=fn: fn(xq, "mxfp4")[0]))
     w = torch.randn(896, 4864, generator=gen, device=dev) / 896 ** 0.5
-    wc, ws = ref.mx_quant_ref(w.T.contiguous(), "mxfp4")
-    wc, ws = wc.T.contiguous(), ws.T.contiguous()
-    for M in (4, 4096):
+    for M, fmt in ((4, "mxfp4"), (4096, "mxfp4"), (4096, "mxfp8")):
+        wc, ws = ref.mx_quant_ref(w.T.contiguous(), fmt)
+        wc, ws = wc.T.contiguous(), ws.T.contiguous()
         x = torch.randn(M, 896, generator=gen, device=dev)
-        out.append((f"mx_gemm M={M} K=896 N=4864 mxfp4", "mx_gemm",
+        out.append((f"mx_gemm M={M} K=896 N=4864 {fmt}", "mx_gemm",
                     200 if M == 4 else 20,
-                    lambda x=x: ops.mx_gemm(x, wc, ws, "mxfp4")))
+                    lambda x=x, wc=wc, ws=ws, fmt=fmt: ops.mx_gemm(x, wc, ws,
+                                                                   fmt)))
     return out
 
 
@@ -179,28 +184,38 @@ def main(argv=None) -> int:
         if not all(entry in b for b in builds.values()):
             continue
         times = {"other": [], "this": []}
-        dev_times = {"other": [], "this": []}
+        splits = {"other": [], "this": []}
         outs = {}
         for _ in range(args.rounds):
             for tag in ("other", "this", "this", "other"):
                 build._libs[entry] = builds[tag][entry]
-                dev_times[tag].append(cs.device_ms(torch, call, iters))
+                splits[tag].append(cs.device_split(torch, call, iters))
                 times[tag].append(cs.cuda_ms(torch, call, iters))
                 outs[tag] = call()
         torch.cuda.synchronize()
         diff = (outs["this"].float()
                 - outs["other"].float()).abs().max().item()
         mean = {t: sum(v) / len(v) for t, v in times.items()}
+        dev_times = {t: [sum(r.values()) for r in v]
+                     for t, v in splits.items()}
         dmean = {t: sum(v) / len(v) for t, v in dev_times.items()}
+        by_kernel = {t: {n: sum(r.get(n, 0.0) for r in v) / len(v)
+                         for n in sorted({n for r in v for n in r})}
+                     for t, v in splits.items()}
         cs.log(f"{label}: device other {dmean['other']:.4f} ms, this "
                f"{dmean['this']:.4f} ms "
                f"({dmean['this'] / dmean['other']:.3f}x); per call, wrapper "
                f"included, other {mean['other']:.4f} ms, this "
                f"{mean['this']:.4f} ms ({mean['this'] / mean['other']:.3f}x); "
                f"max |this - other| {diff:.3e}")
+        for t, k in by_kernel.items():
+            if len(k) > 1:
+                cs.log(f"{label}: {t} by kernel: " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in k.items()))
         result["kernels"].append({"case": label, "ms": times,
                                   "mean_ms": mean, "device_ms": dev_times,
                                   "mean_device_ms": dmean,
+                                  "device_ms_by_kernel": by_kernel,
                                   "max_abs_diff": diff})
     build._libs.clear()
     print(json.dumps(result))

@@ -31,9 +31,9 @@ def apply_blockwise(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     The products of f32 values with f32 matrix entries are exact in
     float64, so the block sums are accumulated there and rounded once to
     x's dtype. That pins the rotated value independently of summation
-    order, which is what keeps this plain version and the GEMM kernel's
-    T3 prologue (the same f64 accumulation) on the same side of every
-    snap midpoint."""
+    order, which is what keeps this plain version and the CUDA kernels'
+    T3 (an exact f64 butterfly, rounded once; tests/test_torch_gemm_tile.py
+    holds the two equal) on the same side of every snap midpoint."""
     b = h.shape[0]
     *lead, d = x.shape
     xb = x.reshape(*lead, d // b, b).double()

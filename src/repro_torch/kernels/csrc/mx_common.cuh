@@ -113,37 +113,56 @@ __device__ __forceinline__ int quant_code(int fmt, float x, float scale) {
   return fmt_center<kFp6>(fmt) + (z < 0.0f ? -idx : idx);
 }
 
-// Entry H[b][c] of the Sylvester-ordered Hadamard H32 of the T3 rotation:
-// +-f32(1/sqrt(32)), negative where b & c has an odd number of bits; in f64,
-// where its products with f32 values are exact.
-__device__ __forceinline__ double h32_coef(int b, int c) {
+// The T3 rotation of a 32-block held E elements a thread by 32 / E lanes
+// (element E (lane % (32 / E)) + i in v[i]; E = 32: the whole block in one
+// thread): y_c = f32(h sum_b (-1)^popc(b & c) v_b), the Sylvester-ordered
+// Hadamard H32 with h = f32(1/sqrt(32)). The sum is the Walsh-Hadamard
+// butterfly in f64, one index bit at a time from bit 0 (the bits below
+// log2 E in registers, the others across lanes by shuffles), each step
+// (lower + upper, lower - upper): the same additions in the same order in
+// every layout, so every kernel lands on the same f32 values. The sums are
+// exact unless a block spans more than 24 binades (24 bits of f32 and 5 of
+// 32 terms within f64's 53); the product with h is rounded to f64, then to
+// f32. The plain version (core/transforms.py ``apply_blockwise``) sums the
+// exact products h v_b in f64 and rounds once: the two differ only where
+// their f64 values straddle an f32 rounding point.
+template <int E>
+__device__ __forceinline__ void rotate_h32(float (&v)[E], int lane) {
+  double d[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) d[i] = v[i];
+#pragma unroll
+  for (int o = 1; o < E; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (!(i & o)) {
+        const double a = d[i], b = d[i + o];
+        d[i] = a + b;
+        d[i + o] = a - b;
+      }
+#pragma unroll
+  for (int o = 1; o < 32 / E; o <<= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const double q = __shfl_xor_sync(0xffffffffu, d[i], o);
+      d[i] = upper ? q - d[i] : d[i] + q;
+    }
+  }
   const double h = (double)(float)(1.0 / sqrt(32.0));
-  return (__popc(b & c) & 1) ? -h : h;
+#pragma unroll
+  for (int i = 0; i < E; ++i) v[i] = (float)(d[i] * h);
 }
 
 // Encode one 32-block in place of the Pallas tile bodies: with ``t3`` the
-// block is first rotated by the Sylvester-ordered Hadamard H32 (entries
-// +-f32(1/sqrt(32)); y_c = sum_b v_b H[b][c], products exact in f64, one
-// rounding to f32 at the end — the plain versions' definition, so the snap
-// of a value near a grid midpoint does not depend on a summation order).
-// Then amax, the block exponent and the snap. On return ``v`` holds the
-// (rotated) block, ``code`` its symmetric codes; returns the scale exponent.
+// block is first rotated by the Sylvester-ordered Hadamard H32
+// (``rotate_h32``). Then amax, the block exponent and the snap. On return
+// ``v`` holds the (rotated) block, ``code`` its symmetric codes; returns the
+// scale exponent.
 template <bool kFp6 = false>
 __device__ __forceinline__ int mx_encode_block(int fmt, float (&v)[32],
                                                bool t3, int (&code)[32]) {
-  if (t3) {
-    float y[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      double acc = 0.0;
-#pragma unroll
-      for (int b = 0; b < 32; ++b)
-        acc = fma((double)v[b], h32_coef(b, c), acc);
-      y[c] = (float)acc;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) v[i] = y[i];
-  }
+  if (t3) rotate_h32<32>(v, 0);
   float amax = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) amax = fmaxf(amax, fabsf(v[i]));

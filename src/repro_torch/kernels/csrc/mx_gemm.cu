@@ -8,7 +8,7 @@
 // byte i along K; w scales (K/32, N) u8 E8M0; y (M, N) f32. Two kernels,
 // chosen by M:
 //
-//   * M > MAX_M (prefill): the WMMA tile loop of mx_gemm.cuh after its
+//   * M > MAX_M (prefill): the wgmma tile of mx_gemm.cuh after its
 //     activation-quantize pass; this layout's power-of-two scales are folded
 //     into the bf16 weight tile (exact).
 //   * M <= MAX_M (every decode step): ``gemv_kernel`` below, a GEMV built for
@@ -29,20 +29,20 @@
 // lines of nibbles, 16 columns x 2 K rows each, and the E8M0 lines) into
 // shared memory with cp.async, every copy in flight at once. Warp (row pair,
 // jw) takes MX blocks jw, jw + 4, ... of the chunk: it encodes its two rows'
-// 32-element activation blocks, one element per lane (``encode_rows``:
-// ``mx_encode_block``'s steps from mx_common.cuh, element by element, so the
-// snaps are the plain version's); past MAX_INKERNEL_KBB MX blocks per split
-// (``ffn_down``: K = 4864, 19 per split) ``quant_rows_kernel`` encodes each
-// activation block once before the GEMV instead. Lane (sub, group) decodes
-// the nibbles of byte rows 2 sub and 2 sub + 1 through a 16-entry table once
-// for both rows, and each 4-term dot product is scaled by its column's E8M0
-// power of two (exact) as it joins the accumulator; a chunk's sums are
-// added to the earlier chunks' in shared memory. The 32 partial sums of
-// each output (8 lanes x 4 warps) are added in order through shared memory;
-// each block then pushes its sums into the shared memory of the block of the
-// cluster that owns them, and after one cluster barrier the owner adds the
-// splits in rank order. No float atomics: repeated calls are bitwise
-// identical.
+// 32-element activation blocks, one element per lane (``encode_rows``: the
+// activation pass's ``encode_lanes`` and mx_common.cuh's ``rotate_h32``, so
+// the snaps are the plain version's); past MAX_INKERNEL_KBB MX blocks per
+// split (``ffn_down``: K = 4864, 19 per split) the tile's activation pass
+// (mx_gemm.cuh, with f32 output) encodes each activation block once before
+// the GEMV instead. Lane (sub, group) decodes the nibbles of byte rows 2 sub
+// and 2 sub + 1 through a 16-entry table once for both rows, and each
+// 4-term dot product is scaled by its column's E8M0 power of two (exact) as
+// it joins the accumulator; a chunk's sums are added to the earlier chunks'
+// in shared memory. The 32 partial sums of each output (8 lanes x 4 warps)
+// are added in order through shared memory; each block then pushes its sums
+// into the shared memory of the block of the cluster that owns them, and
+// after one cluster barrier the owner adds the splits in rank order. No
+// float atomics: repeated calls are bitwise identical.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -60,15 +60,12 @@ constexpr int CG = 4;             // 16-column groups per block: 64 columns
 constexpr int SUBS = 32 / CG;     // a group's lanes in a warp, 2 byte rows each
 constexpr int PARTS = SUBS * KW;  // partial sums per output
 constexpr int OUT = MT * CG * 16; // outputs per block
-constexpr int MAX_M = 16;         // larger M takes the WMMA tile
+constexpr int MAX_M = 16;         // larger M takes the wgmma tile
 constexpr int MAX_SPLIT = 8;      // K splits: the portable cluster size
 constexpr int KCH = 5 * KW;       // MX blocks staged at once (a split of
                                   // Qwen2-0.5B's ffn_down, 19, in one chunk)
 constexpr int MAX_INKERNEL_KBB = 2 * KW;  // two activation blocks a warp
 static_assert(MAX_INKERNEL_KBB <= KCH, "the encode runs in the 1st chunk");
-constexpr int QW = 4;             // warps per block of the prepass
-constexpr int QR = 2;             // rows per warp of the prepass
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t word_of(const uint4& w, int q) {
   return q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
@@ -81,107 +78,33 @@ __device__ __forceinline__ float e8m0_exact(uint32_t b) {
                  : __int_as_float(b == 255u ? 0x7F800000 : (int)(b << 23));
 }
 
-// A 4-bit format's tables, built by each block from mx_common.cuh's own
-// expressions: ``code[c]`` = decode_code(fmt, c) of each nibble, ``gv[k]``
-// = grid_value(fmt, k) of the 8 grid magnitudes and ``mid[k]`` = (gv[k] +
-// gv[k + 1]) * 0.5f, the midpoints ``snap_index`` compares |z| with.
-struct Tables {
-  float code[16];
-  float gv[8];
-  float mid[8];
-};
-
-// Threads 0 .. 23 of a block fill ``t`` (then a barrier).
-__device__ __forceinline__ void build_tables(Tables& t, int fmt, int tid) {
-  if (tid < 16) {
-    t.code[tid] = decode_code(fmt, tid);
-  } else if (tid < 24) {
-    const int k = tid - 16;
-    t.gv[k] = grid_value(fmt, k);
-    t.mid[k] = k < 7 ? (grid_value(fmt, k) + grid_value(fmt, k + 1)) * 0.5f
-                     : INFINITY;
-  }
-}
+// the 4-bit format tables of mx_gemm.cuh (shared with the activation pass)
+using mxgemm::Tables;
+using mxgemm::build_tables;
 
 // R rows of one activation 32-block, spread over a warp (lane i holds
 // element i of each).
 template <int R>
 struct Rows {
-  float v[R];
+  float v[R][1];
 };
 
-// The T3 rotation: lane c returns y_c = sum_b v_b H[b][c] of each row as
-// ``mx_encode_block``'s f64 fma chain over b = 0..31 (the same coefficients,
-// ``h32_coef``), rounded once; the rows' chains interleave.
+// The T3 rotation of each row (mx_common.cuh's ``rotate_h32``, one element
+// a lane), out of line; the rows' shuffles interleave.
 template <int R>
-__device__ __noinline__ Rows<R> rotate_h32(Rows<R> a, int lane) {
-  double acc[R];
+__device__ __noinline__ Rows<R> rotate_rows(Rows<R> a, int lane) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0;
-#pragma unroll 4
-  for (int b = 0; b < 32; ++b) {
-    const double hb = h32_coef(b, lane);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[r] = fma((double)__shfl_sync(FULL, a.v[r], b), hb, acc[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) a.v[r] = (float)acc[r];
+  for (int r = 0; r < R; ++r) rotate_h32<1>(a.v[r], lane);
   return a;
 }
 
-// Q_mx of each row, encoded and decoded: ``mx_encode_block``'s steps
-// (mx_common.cuh) with the block's 32 elements on the warp's lanes — the max
-// magnitude across the lanes, ``block_scale_exp``, ``quant_code``'s
-// quotient, its snap (``snap_index``'s count of the midpoints at or below
-// |z|, as a 3-step search over the 7 midpoints of ``t``), ``decode_code``
-// times the scale, as the tile path's ``act_quant_kernel`` writes it. The
-// rows interleave.
+// Q_mx of each row, encoded and decoded (mx_gemm.cuh's ``encode_lanes``,
+// one element a lane, as the activation pass writes it), out of line.
 template <int R>
 __device__ __noinline__ Rows<R> encode_rows(const Tables& t, int fmt,
                                             Rows<R> a) {
-  float amax[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) amax[r] = fabsf(a.v[r]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      amax[r] = fmaxf(amax[r], __shfl_xor_sync(FULL, amax[r], o));
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float scale = ldexpf(1.0f, block_scale_exp(fmt, amax[r]));
-    const float z = __fdiv_rn(a.v[r], scale), mag = fabsf(z);
-    int idx = 0;
-#pragma unroll
-    for (int step = 4; step > 0; step >>= 1)
-      if (t.mid[idx + step - 1] <= mag) idx += step;
-    a.v[r] = (z < 0.0f && idx > 0 ? -t.gv[idx] : t.gv[idx]) * scale;
-  }
+  mxgemm::encode_lanes<false, R, 1>(t, fmt, true, a.v);
   return a;
-}
-
-// xq (M, K) f32 = Q_mx(x [· blockdiag(H32)]): warp w of block (bx, by)
-// encodes MX block QW * bx + w of rows QR * by ...
-__global__ void __launch_bounds__(32 * QW)
-quant_rows_kernel(const float* __restrict__ x, float* __restrict__ xq, int M,
-                  int K, int fmt, int t3) {
-  __shared__ Tables tab;
-  const int kb = blockIdx.x * QW + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32, m0 = blockIdx.y * QR;
-  Rows<QR> a;
-#pragma unroll
-  for (int r = 0; r < QR; ++r)
-    a.v[r] = kb < K / 32 && m0 + r < M
-                 ? x[(size_t)(m0 + r) * K + kb * 32 + lane] : 0.0f;
-  build_tables(tab, fmt, threadIdx.x);
-  __syncthreads();
-  if (kb >= K / 32) return;                      // warp-uniform
-  if (t3) a = rotate_h32<QR>(a, lane);
-  a = encode_rows<QR>(tab, fmt, a);
-#pragma unroll
-  for (int r = 0; r < QR; ++r)
-    if (m0 + r < M) xq[(size_t)(m0 + r) * K + kb * 32 + lane] = a.v[r];
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -315,28 +238,29 @@ gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   } else if (nj == 1) {                               // warp-uniform
     Rows<MW> a;
 #pragma unroll
-    for (int r = 0; r < MW; ++r) a.v[r] = x_at(kb0, nb, 0, r);
-    if (t3) a = rotate_h32<MW>(a, lane);
+    for (int r = 0; r < MW; ++r) a.v[r][0] = x_at(kb0, nb, 0, r);
+    if (t3) a = rotate_rows<MW>(a, lane);
     a = encode_rows<MW>(tab, fmt, a);
 #pragma unroll
-    for (int r = 0; r < MW; ++r) xw[r * 32 + lane] = a.v[r];
+    for (int r = 0; r < MW; ++r) xw[r * 32 + lane] = a.v[r][0];
   } else {
-    // two MX blocks per call, so their chains interleave; a block past the
+    // two MX blocks per call, so their steps interleave; a block past the
     // chunk holds zeros, which encode to zeros
     for (int j0 = 0; j0 < nj; j0 += 2) {
       Rows<2 * MW> a;
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int r = 0; r < MW; ++r) a.v[h * MW + r] = x_at(kb0, nb, j0 + h, r);
-      if (t3) a = rotate_h32<2 * MW>(a, lane);
+        for (int r = 0; r < MW; ++r)
+          a.v[h * MW + r][0] = x_at(kb0, nb, j0 + h, r);
+      if (t3) a = rotate_rows<2 * MW>(a, lane);
       a = encode_rows<2 * MW>(tab, fmt, a);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (j0 + h >= nj) break;
 #pragma unroll
         for (int r = 0; r < MW; ++r)
-          xw[((j0 + h) * MW + r) * 32 + lane] = a.v[h * MW + r];
+          xw[((j0 + h) * MW + r) * 32 + lane] = a.v[h * MW + r][0];
       }
     }
   }
@@ -482,9 +406,9 @@ int launch(const void* x, void* scratch, const void* wp, const void* ws,
   const int prequant = kbb > MAX_INKERNEL_KBB;
   const float* xin = static_cast<const float*>(x);
   if (prequant) {
-    quant_rows_kernel<<<dim3((nkb + QW - 1) / QW, (M + QR - 1) / QR),
-                        32 * QW, 0, s>>>(xin, static_cast<float*>(scratch), M,
-                                         K, fmt, t3);
+    e = mxgemm::launch_act<false>(s, xin, static_cast<float*>(scratch), M, K,
+                                  fmt, t3);
+    if (e != cudaSuccess) return (int)e;
     xin = static_cast<const float*>(scratch);
   }
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0
@@ -517,5 +441,7 @@ extern "C" int mx_gemm_packed_launch(const void* x, void* xq, const void* wp,
     return mxgemv::launch(x, xq, wp, ws, y, M, N, K, fmt, t3, stream);
   mxgemm::PackedE8M0Weights w{static_cast<const uint8_t*>(wp),
                               static_cast<const uint8_t*>(ws)};
-  return mxgemm::launch(x, xq, w, y, M, N, K, fmt, t3, stream);
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+  return mxgemm::launch(x, xq, w, vec, y, M, N, K, fmt, t3, stream);
 }

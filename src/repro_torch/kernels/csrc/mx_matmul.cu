@@ -8,10 +8,10 @@
 // Inputs: x (M, K) f32; w codes (K, N) u8, one code per byte (any MX format:
 // mxfp4, mxint4, mxfp6, mxfp8, mxint8); w scales (K/32, N) f32; y (M, N)
 // f32. The activations are quantized to the same format as the weights.
-// The tile loop, its bound and its design are in mx_gemm.cuh. This layout's
-// f32 scales need not be powers of two, so they are applied to the f32
-// partial product of each 32-deep K step (one MX block), not folded into the
-// bf16 weight tile.
+// The tile, its bound and its design are in mx_gemm.cuh. This layout's f32
+// scales need not be powers of two, so they are applied in registers to the
+// f32 partial product of each 32-deep K step (one MX block, two k16 wgmmas),
+// not folded into the bf16 weight tile.
 #include "mx_gemm.cuh"
 
 // x (M, K) f32, xq scratch (M, K) bf16, wc (K, N) u8, ws (K/32, N) f32,
@@ -22,6 +22,8 @@ extern "C" int mx_gemm_launch(const void* x, void* xq, const void* wc,
   if (M <= 0 || N <= 0 || K % 32 != 0 || fmt < FMT_FP4 || fmt > FMT_FP6)
     return (int)cudaErrorInvalidValue;
   mxgemm::ByteF32Weights w{static_cast<const uint8_t*>(wc),
-                           static_cast<const float*>(ws), N};
-  return mxgemm::launch(x, xq, w, y, M, N, K, fmt, 0, stream);
+                           static_cast<const float*>(ws)};
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wc) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
+  return mxgemm::launch(x, xq, w, vec, y, M, N, K, fmt, 0, stream);
 }

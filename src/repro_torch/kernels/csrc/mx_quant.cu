@@ -10,14 +10,13 @@
 // Every MX format: mxfp4, mxint4, mxfp6, mxfp8, mxint8.
 //
 // What bounds it on an H100: bytes — 4 read and 1 + 1/8 written per element,
-// against a handful of compares per element (T3 adds a 32-wide rotation, 64
-// FLOPs per element, which this version runs in f64 for an exact sum; its
-// time against the bound is in PERF.md).
+// against a handful of compares per element (T3 adds the rotation, a 5-step
+// f64 butterfly per element; its time against the bound is in PERF.md).
 //
 // Design (simple first): one thread per 32-block runs ``mx_encode_block``
-// (mx_common.cuh) — the very function the GEMM prologue calls, so one
-// definition decides every snap — and writes the 32 codes as two 16-byte
-// stores and the block scale 2^sexp (1.0 for an all-zero block).
+// (mx_common.cuh) — the steps and the T3 rotation every kernel's encode
+// shares, so one definition decides every snap — and writes the 32 codes as
+// two 16-byte stores and the block scale 2^sexp (1.0 for an all-zero block).
 #include "mx_common.cuh"
 
 namespace {

@@ -182,6 +182,88 @@ def test_cuda_small_m_gemm_large_widths(cuda_device, K, N, t3):
         y, tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3))
 
 
+# The large-M tile (M > 16): ragged row tiles of 128 (17, 63, 64, 65, 129,
+# 1000 rows), a ragged column tile and a half last K stage (160, 72: K is 5
+# MX blocks, N is not a multiple of 16, so the weights are staged byte by
+# byte), and Qwen2-0.5B's prefill widths.
+TILE_MS = (17, 63, 64, 65, 129, 1000)
+TILE_SHAPES = ((160, 72), (896, 128), (896, 4864), (4864, 896))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t3", (False, True))
+@pytest.mark.parametrize("fmt", ("mxfp4", "mxint4"))
+@pytest.mark.parametrize("K,N", TILE_SHAPES)
+@pytest.mark.parametrize("M", TILE_MS)
+def test_cuda_tile_gemm_matches_plain_version(cuda_device, M, K, N, fmt, t3):
+    """Within 1e-4 of max |y| of the plain version (f32 sums in another
+    order over bf16-exact operands), and two calls bitwise equal."""
+    x, pw = _gemm_operands(cuda_device, M, K, N, fmt, 8)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, fmt, t3=t3)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0, fmt,
+                                   t3=t3)
+    assert y.shape == (M, N)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert torch.equal(y, tops.mx_gemm_packed(x, pw.codes_packed,
+                                              pw.scales_e8m0, fmt, t3=t3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t3", (False, True))
+@pytest.mark.parametrize("M,K,N", ((300, 896, 4864), (1000, 160, 8200)))
+def test_cuda_tile_gemm_256_row_tiles(cuda_device, M, K, N, t3):
+    """Grids of at least half as many 256-row tiles as the card has SMs take
+    the 256-row tile: a ragged last row tile (300 rows), and a ragged column
+    tile with weights staged byte by byte (N % 16 != 0) and a half last K
+    stage (160)."""
+    x, pw = _gemm_operands(cuda_device, M, K, N, "mxfp4", 11)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
+                                   t3=t3)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert torch.equal(y, tops.mx_gemm_packed(x, pw.codes_packed,
+                                              pw.scales_e8m0, t3=t3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", ((160, 72), (896, 128)))
+def test_cuda_tile_gemm_stacked_weights(cuda_device, K, N):
+    """Stacked (L, K/2, N) weights with x (L, M, K): each layer's product
+    against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    L, M = 3, 129
+    x = torch.randn(L, M, K, generator=g, device=cuda_device)
+    w = torch.randn(L, K, N, generator=g, device=cuda_device) / K ** 0.5
+    pw = PackedWeight.from_dense(w)
+    for t3 in (False, True):
+        y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+        yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
+                                       t3=t3)
+        assert y.shape == (L, M, N)
+        assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", MX_FMTS)
+@pytest.mark.parametrize("K,N", ((160, 72), (896, 4864)))
+@pytest.mark.parametrize("M", (17, 300))
+def test_cuda_tile_unpacked_gemm_matches_plain_version(cuda_device, M, K, N,
+                                                       fmt):
+    """mx_gemm through the tile: each MX block's partial product scaled in
+    registers; within 1e-5 of max |y| with power-of-two scales and with
+    scales an ulp off one, and two calls bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(M, K, generator=g, device=cuda_device)
+    w = torch.randn(K, N, generator=g, device=cuda_device) / K ** 0.5
+    wc, ws = tref.mx_quant_ref(w.T.contiguous(), fmt)
+    wc, ws = wc.T.contiguous(), ws.T.contiguous()
+    for scales in (ws, ws * (1 + 2.0 ** -23)):
+        y = tops.mx_gemm(x, wc, scales, fmt)
+        yp = tref.mx_matmul_ref(x, wc, scales, fmt)
+        assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
+        assert torch.equal(y, tops.mx_gemm(x, wc, scales, fmt))
+
+
 def _decode_case(dev, case, fmt, layout, Dh=64, seed=6):
     """q, the packed KV of ``layout`` and the plain version's output, for a
     case of test_torch_split_decode.CASES."""
