@@ -10,8 +10,9 @@ Phases, in order (each raises on failure; nothing is caught):
 2. kernels: each of the seven kernels against its plain PyTorch version on
    the card, at the Qwen2-0.5B shapes of the serving path (the packed GEMM
    at the decode shape M = 4, the prefill shape M = 4096, and the main
-   path's chunk and wave prefill rows, M = 1024 and 5296, at (896, 4864)),
-   with the times of the kernel, the plain version and one PyTorch library
+   path's chunk and wave prefill rows, M = 1024 and 5296, at (896, 4864);
+   the flash-prefill on 1024-row and on 64-row pages), with the times of
+   the kernel, the plain version and one PyTorch library
    call (where one computes the same function) — device time from
    ``torch.profiler``, and per call with the wrapper included by CUDA
    events — and the least time the card could take (``bound_ms``);
@@ -78,6 +79,9 @@ SOURCE = {
 }
 MX_FMTS = ("mxfp4", "mxint4", "mxfp6", "mxfp8", "mxint8")
 PAGED_KERNELS = ("mx_gemm_packed", "mx_flash_prefill", "mx_flash_decode_paged")
+# the port's CUDA kernels as the profiler names them
+PORT_KERNELS = ("mxgemv::", "mxgemm::", "mxdecode::", "flash_prefill_kernel",
+                "kv_quant_kernel")
 
 
 def log(*a):
@@ -340,10 +344,20 @@ def check_decode(torch, dev, gen):
     return entry
 
 
-def check_prefill(torch, dev, gen):
+def check_prefill(torch, dev, gen, seed: int):
+    """The flash-prefill on 1024-row pages (2 table slots, the served
+    model's page at attn_chunk 1024) and on 64-row pages (32 slots, the
+    engine's page at attn_chunk 64); the second draws from its own
+    generator, so every check after keeps its inputs."""
+    gen64 = torch.Generator(device=dev).manual_seed(seed + 64)
+    return [_prefill_pages(torch, dev, gen, 1024, 2),
+            _prefill_pages(torch, dev, gen64, 64, 32)]
+
+
+def _prefill_pages(torch, dev, gen, P, maxp):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    B, C, H, kvh, Dh, P, maxp = 4, 1024, 14, 2, 64, 1024, 2
+    B, C, H, kvh, Dh = 4, 1024, 14, 2, 64
     D, G, n_pages = kvh * Dh, H // kvh, 1 + 4 * maxp
     entry = None
     for fmt, starts in (("mxfp8", [0, 1024, 0, 0]), ("mxfp8", [512, 0, 0, 7]),
@@ -362,11 +376,11 @@ def check_prefill(torch, dev, gen):
         torch.cuda.synchronize()
         err = (outs[0] - plains[0]).abs().max().item()
         same = all(torch.equal(a, b) for a, b in zip(outs[1:], plains[1:]))
-        log(f"prefill {fmt} q_start={starts}: max_abs_err {err:.3e}, "
+        log(f"prefill {fmt} q_start={starts} P={P}: max_abs_err {err:.3e}, "
             f"chunk bytes equal to kv_encode: {same}")
         if not (err <= 1e-4 and same):
             raise AssertionError(f"mx_flash_prefill disagrees with its plain "
-                                 f"version ({fmt}, q_start {starts})")
+                                 f"version ({fmt}, q_start {starts}, P {P})")
         if fmt != "mxfp8" or starts[1] != 1024:
             continue
         # library yardstick: SDPA over the decoded logical cache, with the
@@ -386,20 +400,20 @@ def check_prefill(torch, dev, gen):
         mask = ((kp[None, None, :] <= qpos[:, :, None])
                 & (kp[None, None, :] < kl[:, None, None].long()))[:, None]
         qh = q.transpose(1, 2).contiguous()
-        t = timed(torch, f"prefill {fmt} B={B} C={C} q_start={starts}",
+        t = timed(torch, f"prefill {fmt} B={B} C={C} q_start={starts} P={P}",
                   lambda: ops.mx_flash_prefill(q, kd, vd, kc, ks, vc, vs, bt,
                                                st, kl, fmt),
                   lambda: ref.mx_prefill_ref(q, kd, vd, kc, ks, vc, vs, bt,
                                              st, kl, fmt),
                   lambda: F.scaled_dot_product_attention(
-                      qh, kh, vh, attn_mask=mask), 5, 3)
+                      qh, kh, vh, attn_mask=mask), 20, 3)
         row = D + D // 32
         nbytes = (2 * B * C * H * Dh * 4 + 2 * B * C * D * 4
                   + 2 * B * C * row + 2 * sum(starts) * row + bt.numel() * 4)
         keys = sum(C * s + C * (C + 1) // 2 for s in starts)
         b, by = bound_ms(nbytes, 4.0 * H * Dh * keys, PEAK_BF16)
-        log(f"prefill {fmt} B={B} C={C} q_start={starts}: bound_ms {b:.4f} "
-            f"({by})")
+        log(f"prefill {fmt} B={B} C={C} q_start={starts} P={P}: bound_ms "
+            f"{b:.4f} ({by}), share of the bound {b / t['ms']:.3f}")
         entry = {"name": "mx_flash_prefill",
                  "shape": f"B={B} C={C} H={H} kvh={kvh} Dh={Dh} P={P} "
                           f"q_start={starts} {fmt}",
@@ -600,8 +614,10 @@ def profile_serving(torch, eng, Request, cfg, seed: int, label: str) -> None:
     busy = sum(r[0] for r in rows)
     log(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel names")
-    for ms, n, key in rows[:15]:
-        log(f"profile {label}: {ms:10.3f} ms {n:7d}x  {key[:90]}")
+    # the 15 largest, and every kernel of the port's below them
+    for i, (ms, n, key) in enumerate(rows):
+        if i < 15 or any(k in key for k in PORT_KERNELS):
+            log(f"profile {label}: {ms:10.3f} ms {n:7d}x  {key[:90]}")
 
 
 def decode_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
@@ -994,7 +1010,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_facts(torch, build)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    entries = [*check_gemm(torch, dev, gen), check_prefill(torch, dev, gen),
+    entries = [*check_gemm(torch, dev, gen),
+               *check_prefill(torch, dev, gen, args.seed),
                check_decode(torch, dev, gen), check_flash_decode(torch, dev,
                                                                  gen),
                *check_quantizers(torch, dev, gen),

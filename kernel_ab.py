@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two builds of the port's CUDA kernels back to back on one GPU.
 
-    python3 kernel_ab.py --other DIR [--this DIR] [--rounds 3]
+    python3 kernel_ab.py --other DIR [--this DIR] [--rounds 3] [--only TEXT]
 
 ``DIR`` is the ``src/repro_torch/kernels/csrc`` of another checkout (for
 example the parent commit, unpacked with ``git archive`` into the
@@ -12,14 +12,16 @@ whose register and spill report is printed. Each kernel then runs
 through its ``ops`` wrapper on the same inputs as in ``chip_smoke.py`` (a
 wrapper's launch goes to whichever build is loaded), in the order other,
 this, this, other, ``--rounds`` times, so both builds see the same
-clocks. A build whose flash-decode entries still have the C signature
-without the split scratch (before the split-key decode) is called through
-an adapter that drops the new arguments. Where a case launches more than
-one kernel (the GEMM's activation pass and its tile), its device time is
-also printed by kernel name. The last line is a JSON object with every
-time — device ms from ``torch.profiler``, in all and by kernel name, and
-ms per call by CUDA events, wrapper included — and the largest difference
-between the two builds' outputs.
+clocks; ``--only`` keeps the cases whose label contains its text. A build
+whose flash-decode entries still have the C signature without the split
+scratch (before the split-key decode) is called through an adapter that
+drops the new arguments. Where a case launches more than one kernel (the
+GEMM's activation pass and its tile, the prefill's two chunk encodes and
+its attention), its device time is also printed by kernel name. The last
+line is a JSON object with every time — device ms from
+``torch.profiler``, in all and by kernel name, and ms per call by CUDA
+events, wrapper included — and the largest difference between the two
+builds' outputs.
 """
 from __future__ import annotations
 
@@ -123,7 +125,7 @@ def cases(torch, dev, gen):
     q2 = torch.randn(B, C, H, Dh, generator=gen, device=dev)
     kd = torch.randn(B, C, D, generator=gen, device=dev)
     vd = torch.randn(B, C, D, generator=gen, device=dev)
-    out.append((f"mx_flash_prefill B={B} C={C} q_start={starts} mxfp8",
+    out.append((f"mx_flash_prefill B={B} C={C} q_start={starts} P={P} mxfp8",
                 "mx_flash_prefill", 5,
                 lambda: ops.mx_flash_prefill(q2, kd, vd, kc, ks, vc, vs, bt2,
                                              st, st + C, "mxfp8")[0]))
@@ -150,6 +152,17 @@ def cases(torch, dev, gen):
                     200 if M == 4 else 20,
                     lambda x=x, wc=wc, ws=ws, fmt=fmt: ops.mx_gemm(x, wc, ws,
                                                                    fmt)))
+    # the prefill again on 64-row pages through 32-slot tables (drawn last,
+    # so every case above keeps its inputs)
+    P64, maxp64 = 64, 32
+    n64 = 1 + 4 * maxp64
+    pool64 = cs._paged_pool(torch, dev, gen, n64, P64, D, "mxfp8")
+    bt64 = cs._tables(torch, dev, gen, B, maxp64, n64,
+                      [s + C for s in starts], P64)
+    out.append((f"mx_flash_prefill B={B} C={C} q_start={starts} P={P64} "
+                f"mxfp8", "mx_flash_prefill", 5,
+                lambda: ops.mx_flash_prefill(q2, kd, vd, *pool64, bt64, st,
+                                             st + C, "mxfp8")[0]))
     return out
 
 
@@ -161,6 +174,8 @@ def main(argv=None) -> int:
                     help="the csrc to hold against it (default: this "
                          "checkout's)")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", default=None,
+                    help="time only the cases whose label contains this")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -182,6 +197,8 @@ def main(argv=None) -> int:
               "this": str(args.this or build.CSRC), "kernels": []}
     for label, entry, iters, call in cases(torch, dev, gen):
         if not all(entry in b for b in builds.values()):
+            continue
+        if args.only and args.only not in label:
             continue
         times = {"other": [], "this": []}
         splits = {"other": [], "this": []}

@@ -1,8 +1,9 @@
 // Paged flash-prefill attention fused with the chunk's quantize-on-append,
-// for Hopper.
+// for Hopper's tensor cores.
 //
-// Replaces the Pallas kernel ``mx_flash_prefill`` of the JAX package
-// (src/repro/kernels/mx_attention.py:478, its ``pallas_call`` at :582).
+// Replaces the Pallas kernel ``_flash_prefill_kernel`` of the JAX package
+// (src/repro/kernels/mx_attention.py:393; its entry point
+// ``mx_flash_prefill`` at :478, the ``pallas_call`` at :582).
 //
 // q (B, C, H, Dh) f32 — a C-token chunk per lane; K/V chunk (B, C, D) f32;
 // K/V pools (N, P, D*bits/8) u8 + (N, P, D/32) u8 E8M0; block tables
@@ -12,187 +13,802 @@
 //
 // What bounds it on an H100: the operations. A 1024-row chunk against up to
 // a page of prefix does ~4 FLOPs per (query head, key, feature) over ~1e3
-// keys per byte moved, far above the memory roofline, so the f32 CUDA-core
-// math below sits at a small share of the bf16 tensor-core bound. Moving the
-// two products onto tensor cores (q and p are not exact in bf16, so it needs
-// a split or a tolerance) is the later step.
+// keys per byte moved, far above the memory roofline. Exact products on the
+// tensor cores take three times the bf16 work (below); the exps, masks and
+// splits of the softmax and the K/V decode run on the CUDA cores beside
+// them, and at one block of 12 warps per SM (registers) what is left is
+// latency: each block's start and each tile's hand-offs
+// (scripts/prefill_passes.py times the parts).
 //
-// Design (simple first): pass 1 encodes the chunk, one thread per 32-block
-// (``mx_encode_block``, then the E8M0 byte and the nibble order), and writes
-// the byte outputs — exactly one writer per chunk row. Pass 2 attends: one block per
-// (query tile of up to 64 / G rows, KV head, lane) walks the committed
-// prefix through the block table (pool rows valid iff kp < q_start, so a
-// mid-page resume never counts a row twice), then the chunk rows decoded
-// from the bytes pass 1 wrote (row i at q_start + i) — attention reads the
-// round trip of the very bytes the pool receives. Causal (kp <= qp), fill
-// (kp < kv_len) and window (kp > qp - window) masks per query row; online
-// softmax with NEG_INF scores, masked probabilities at 0 and the normaliser
-// clamped at 1e-30, as in the Pallas body.
-#include "mx_common.cuh"
+// Pass 1 (``kv_quant_kernel``, twice): encodes the chunk's K and V, a warp
+// per four 32-blocks, and writes the byte outputs — exactly one writer per
+// chunk row.
+//
+// Pass 2 (``flash_prefill_kernel``): a block owns one (lane, KV head) and
+// 128 rows r = (i - i0) G + g of (query position i, head g of the KV head's
+// G): one decoded K/V tile serves every head of 128 / G positions (18 for
+// Qwen2-0.5B's G = 7). Its keys: the committed prefix through the block
+// table (pool rows valid iff kp < q_start, so a mid-page resume never
+// counts a row twice), then the chunk rows pass 1 wrote (row i at q_start +
+// i) — attention reads the round trip of exactly the bytes the pool
+// receives — in tiles of 128 keys aligned to 128, from the window's first
+// key to the block's last position (wholly masked tiles are never
+// visited). Every block ranks the (lane, query tile) items by their tiles
+// from q_start and kv_len, and the items start most work first.
+//
+//   * Warps 8-11, the decoder warpgroup: thread 0 keeps a ring of four raw
+//     stages filled by TMA (the head's code bytes of 128 key rows, boxes
+//     of gcd(P, 64) rows from the pages the block table names — kept in
+//     shared memory — or from the chunk's bytes; the rows' E8M0 bytes as
+//     1D boxes), each ordered by a transaction-count mbarrier. Every
+//     thread decodes its share of each tile once, through a 256-entry
+//     table, into bf16 in a ring of two stages, in the layout wgmma reads
+//     (K as 64-key rows of Dh, V transposed as Dh rows of 64 keys; 128-byte
+//     rows, 128-byte swizzle); rows past the tile's last valid key decode to
+//     0. No decoder thread has a global load in flight at its proxy fence,
+//     which waits for all of them.
+//   * Warps 0-7, two consumer warpgroups of 64 rows, per 64-key half of a
+//     stage: S = Q K^T by ``wgmma`` m64n64k16 with Q from shared memory,
+//     the online softmax on the accumulator fragment in registers (row max
+//     and sum by quad shuffles, masked scores at -inf and probabilities at
+//     0, the causal, fill and window masks per element only on halves that
+//     cross a bound), then O += P V by ``wgmma`` with P from registers (the
+//     S fragment re-packed as the A operand), V from the ring. A half
+//     wholly masked for a warpgroup's rows is skipped by it (an exact no-op
+//     of the online softmax). O / max(l, 1e-30) goes out from registers.
+//
+// Exactness: every decoded K/V value is an MX code value (at most 4
+// significant bits, 7 for int8) times an E8M0 power of two, exact in bf16
+// (8 bits, f32's exponent range) whenever its f32 form is normal. Q and P are
+// f32: each is split into hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+// - mid), which sum to x exactly, and each product runs three times, once
+// per term. A bf16 x bf16 product is exact in f32, so S and P V differ from
+// the plain version only in the order of f32 additions (two terms would
+// leave ~2^-17 of each element). The score scale 1/sqrt(Dh) multiplies S in
+// f32, as in the plain version.
+//
+// Shapes: Dh a multiple of 16 up to 64 (a 128-byte operand row; a narrower
+// head's columns are zero), G <= 128, P a multiple of 16.
+#include "mx_gemm.cuh"
 
 namespace {
 
-constexpr int NT = 128;        // threads per block
-constexpr int TK = 64;         // keys per tile
-constexpr int MAXR = 64;       // query rows (query position x head) per block
+using mxgemm::bar_sync;
+using mxgemm::desc_b128;
+using mxgemm::fence_proxy_async;
+using mxgemm::mbar_arrive;
+using mxgemm::mbar_expect_tx;
+using mxgemm::mbar_init;
+using mxgemm::mbar_wait;
+using mxgemm::smem_u32;
+using mxgemm::swz;
+using mxgemm::tma_load_2d;
+using mxgemm::wgmma_commit;
+using mxgemm::wgmma_fence;
+using mxgemm::wgmma_wait0;
+
+constexpr int TK = 64;                   // keys per wgmma operand tile
+constexpr int TS = 2 * TK;               // keys per ring stage (a tile)
+constexpr int ROWS = 128;                // (position, head) rows per block
+constexpr int NCW = 8;                   // consumer warps: two warpgroups
+constexpr int NTH = 32 * (NCW + 4);      // + the decoder warpgroup
+constexpr int RING = 2;                  // decoded K/V stages
+constexpr int OP_BYTES = 64 * 128;       // a bf16 operand tile: 64 x 128 B
+constexpr int MAX_ITEMS = 512;           // (lane, query tile) items ranked
+constexpr int PGCAP = 1024;              // page ids a block keeps in smem
 constexpr float NEG_INF = -1e30f;
 
-__global__ void kv_quant_kernel(const float* __restrict__ x,
-                                uint8_t* __restrict__ codes,
-                                uint8_t* __restrict__ scales, long long nblk,
-                                int fmt) {
-  const long long blk = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// For timing the kernel's parts (scripts/prefill_passes.py): built with
+// -DMXPREFILL_LEAVE_OUT=bits, the attention leaves out the decoder's TMA
+// loads (1), its decode (2), the wgmmas (4), the softmax (8), the
+// decoder's proxy fence (32) or the ranking of the blocks' work (64), and
+// its output is wrong (but for 64).
+#ifndef MXPREFILL_LEAVE_OUT
+#define MXPREFILL_LEAVE_OUT 0
+#endif
+constexpr int LEAVE_OUT = MXPREFILL_LEAVE_OUT;
+
+constexpr size_t SMEM_BYTES = 1024 + (size_t)(6 + 4 * RING) * OP_BYTES +
+                              (256 + PGCAP) * 4 + 2 * RING * sizeof(uint64_t);
+
+// Pass 1: x (nblk 32-blocks of f32) -> codes + E8M0 bytes, ``kv_encode``'s
+// bytes. A warp takes four 32-blocks at a time: lane l loads (16 bytes)
+// elements 4 (l % 8) .. + 3 of block l / 8, so a block lies on 8 lanes and
+// a warp's loads are 512 contiguous bytes; the block's amax by shuffles,
+// then ``mx_encode_block``'s steps per element: ``block_scale_exp``, and
+// ``quant_code``'s quotient and ``snap_index``'s search over the grid
+// midpoints, read from a table in shared memory built from the same
+// expression (mx_common.cuh), so the bytes are the same.
+constexpr int QWARPS = 8;        // warps per block of the encode
+__global__ void __launch_bounds__(32 * QWARPS)
+kv_quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
+                uint8_t* __restrict__ scales, long long nblk, int fmt) {
+  __shared__ float mids[128];
+  const int ngrid = fmt_ngrid(fmt);
+  for (int k = threadIdx.x; k < 128; k += blockDim.x)
+    mids[k] = k < ngrid - 1
+                  ? (grid_value(fmt, k) + grid_value(fmt, k + 1)) * 0.5f
+                  : INFINITY;
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const long long blk =
+      ((long long)blockIdx.x * QWARPS + threadIdx.x / 32) * 4 + lane / 8;
+  const int e = 4 * (lane % 8);
+  float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (blk < nblk) f = __ldg(reinterpret_cast<const float4*>(x + blk * 32 + e));
+  const float v[4] = {f.x, f.y, f.z, f.w};
+  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                     fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   if (blk >= nblk) return;
-  const float* src = x + blk * 32;
-  float v[32];
+  const int sexp = block_scale_exp(fmt, amax);
+  const float scale = ldexpf(1.0f, sexp);
+  uint32_t c[4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) v[i] = src[i];
-  int code[32];
-  const int sexp = mx_encode_block(fmt, v, false, code);
-  scales[blk] = e8m0_byte(sexp);
+  for (int i = 0; i < 4; ++i) {
+    const float z = __fdiv_rn(v[i], scale), mag = fabsf(z);
+    int lo = 0, hi = ngrid - 1;       // snap_index: midpoints <= |z|
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (mids[mid] <= mag) lo = mid + 1; else hi = mid;
+    }
+    c[i] = (uint32_t)(fmt_center(fmt) + (z < 0.0f ? -lo : lo));
+  }
+  if (lane % 8 == 0) scales[blk] = e8m0_byte(sexp);
   if (fmt_bits(fmt) == 8) {
-    uint8_t* dst = codes + blk * 32;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dst[i] = (uint8_t)code[i];
+    *reinterpret_cast<uint32_t*>(codes + blk * 32 + e) =
+        c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24);
   } else {
-    uint8_t* dst = codes + blk * 16;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      dst[i] = (uint8_t)(code[2 * i] | (code[2 * i + 1] << 4));
+    *reinterpret_cast<unsigned short*>(codes + blk * 16 + e / 2) =
+        (unsigned short)(c[0] | (c[1] << 4) | (c[2] << 8) | (c[3] << 12));
   }
 }
 
-__global__ void __launch_bounds__(NT)
-flash_prefill_kernel(const float* __restrict__ q,
-                     const uint8_t* __restrict__ kcp, const uint8_t* __restrict__ ksp,
-                     const uint8_t* __restrict__ vcp, const uint8_t* __restrict__ vsp,
-                     const uint8_t* __restrict__ kcc, const uint8_t* __restrict__ ksc,
-                     const uint8_t* __restrict__ vcc, const uint8_t* __restrict__ vsc,
-                     const int* __restrict__ tables, const int* __restrict__ q_start,
-                     const int* __restrict__ kv_len, float* __restrict__ out,
-                     int C, int H, int Dh, int D, int P, int maxp, int fmt,
-                     int window, int QT) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int kvh = D / Dh, G = H / kvh;
-  const int i0 = blockIdx.x * QT, i1 = min(i0 + QT, C);
-  const int R = (i1 - i0) * G;                // rows r = (i - i0) * G + g
-  const int db = D * fmt_bits(fmt) / 8, ns = D / 32;
-  float* Qs = smem;                           // R x Dh
-  float* Ks = Qs + MAXR * Dh;                 // TK x (Dh + 1)
-  float* Vs = Ks + TK * (Dh + 1);             // TK x Dh
-  float* Ps = Vs + TK * Dh;                   // R x TK
-  float* Ms = Ps + MAXR * TK;
-  float* Ls = Ms + MAXR;
-  float* Cs = Ls + MAXR;
+// d (64 x 64 f32, wgmma's fragment layout) (+)= A (64 x 16) B (16 x 64),
+// both operands in shared memory.
+__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const float sm = 1.0f / sqrtf((float)Dh);
-  const int st = q_start[b], kl = kv_len[b];
-  for (int i = tid; i < R * Dh; i += NT) {
-    const int r = i / Dh, d = i % Dh;
-    const int qi = i0 + r / G, g = r % G;
-    Qs[i] = q[(((size_t)b * C + qi) * H + hk * G + g) * Dh + d];
+// d (64 x 64 f32) += A (64 x 16, bf16 from registers in the fragment layout
+// of mma's m16k16 A per warp) B (16 x 64, shared memory).
+__device__ __forceinline__ void wgmma64_rs(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Keep the compiler from moving accesses of ``d`` across an asynchronous
+// wgmma (it does not see that the tensor cores read or write ``d`` after
+// issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) = hi + mid + lo exactly, each term a bf16 pair (x0 in the low
+// half): the three-term split of an f32 operand.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 fh = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, fh.x), r1 = __fsub_rn(x1, fh.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 fm = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r0, fm.x), __fsub_rn(r1, fm.y));
+  hi = bf2_bits(h);
+  mid = bf2_bits(m);
+  lo = bf2_bits(l);
+}
+
+// E8M0 byte -> its scale 2^(b - 127) as bf16 bits (exponent field b; 2^-127
+// is the subnormal 0x0040); ``NO_ROW`` (a row past the tile's last valid
+// key) -> 0.
+constexpr uint32_t NO_ROW = 256;
+__device__ __forceinline__ uint32_t scale_bits(uint32_t b) {
+  return b == NO_ROW ? 0u : (b ? b << 7 : 0x40u);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t lo16, uint32_t hi16) {
+  return __halves2bfloat162(__ushort_as_bfloat16((unsigned short)lo16),
+                            __ushort_as_bfloat16((unsigned short)hi16));
+}
+
+__device__ __forceinline__ uint32_t mul_bits(__nv_bfloat162 v,
+                                             __nv_bfloat162 s) {
+  return bf2_bits(__hmul2(v, s));
+}
+
+// A block's key tiles: the prefix's, then the chunk's; each source's keys
+// [t0, hi) in tiles of TS from t0 (a multiple of TS).
+struct Plan {
+  int npt, pt0, phi;     // prefix: tiles, first key, end (key = position)
+  int nct, ct0, chi;     // chunk: tiles, first row, end (row i at q_start + i)
+  // the keys of query rows i0 .. i1 - 1 of a lane at q_start st, kv_len kl:
+  // the window's first key to the last row's position
+  __device__ Plan(int st, int kl, int i0, int i1, int C, int window,
+                  int limit) {
+    const int qp_lo = st + i0, qp_hi = st + i1 - 1;
+    const int plo = window > 0 ? max(0, qp_lo - window + 1) : 0;
+    phi = min(min(st, kl), min(qp_hi + 1, limit));
+    pt0 = plo & ~(TS - 1);
+    npt = phi > plo ? (phi - pt0 + TS - 1) / TS : 0;
+    const int clo = window > 0 ? max(0, i0 - window + 1) : 0;
+    chi = min(min(C, i1), kl - st);
+    ct0 = clo & ~(TS - 1);
+    nct = chi > clo ? (chi - ct0 + TS - 1) / TS : 0;
   }
-  for (int r = tid; r < R; r += NT) { Ms[r] = NEG_INF; Ls[r] = 0.0f; }
-
-  // accumulators: d = tid % Dh, rows r = tid / Dh + j * (NT / Dh)
-  const int rstride = NT / Dh, dcol = tid % Dh, r0 = tid / Dh;
-  constexpr int MAXJ = 32;
-  float acc[MAXJ];
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j) acc[j] = 0.0f;
-
-  const int qp_lo = st + i0, qp_hi = st + i1 - 1;
-  const int foff = hk * Dh;
-  // source 0: committed prefix pages; source 1: the chunk's own rows
-  for (int src = 0; src < 2; ++src) {
-    int lo, hi;
-    if (src == 0) {
-      hi = min(min(st, kl), min(qp_hi + 1, maxp * P));
-      lo = window > 0 ? max(0, qp_lo - window + 1) : 0;
-    } else {      // chunk row index i, key position st + i
-      hi = min(min(C, i1), kl - st);
-      lo = window > 0 ? max(0, i0 - window + 1) : 0;
+  __device__ int n() const { return npt + nct; }
+  __device__ void at(int t, int& src, int& k0, int& hi) const {
+    if (t < npt) {
+      src = 0; k0 = pt0 + TS * t; hi = phi;
+    } else {
+      src = 1; k0 = ct0 + TS * (t - npt); hi = chi;
     }
-    for (int k0 = lo; k0 < hi; k0 += TK) {
-      __syncthreads();
-      for (int i = tid; i < TK * Dh; i += NT) {
-        const int t = i / Dh, d = i % Dh, k = k0 + t;
-        float kv = 0.0f, vv = 0.0f;
-        if (k < hi) {
-          if (src == 0) {
-            const size_t row = (size_t)tables[b * maxp + k / P] * P + k % P;
-            kv = decode_kv(fmt, kcp + row * db, ksp + row * ns, foff + d);
-            vv = decode_kv(fmt, vcp + row * db, vsp + row * ns, foff + d);
-          } else {
-            const size_t row = (size_t)b * C + k;
-            kv = decode_kv(fmt, kcc + row * db, ksc + row * ns, foff + d);
-            vv = decode_kv(fmt, vcc + row * db, vsc + row * ns, foff + d);
-          }
-        }
-        Ks[t * (Dh + 1) + d] = kv;
-        Vs[t * Dh + d] = vv;
-      }
-      __syncthreads();
-      {   // scores: key t = tid % TK, rows r = tid / TK + j * (NT / TK)
-        const int t = tid % TK, k = k0 + t;
-        const int kp = src == 0 ? k : st + k;
-        for (int r = tid / TK; r < R; r += NT / TK) {
-          const int qp = st + i0 + r / G;
-          const bool ok = k < hi && kp < kl && kp <= qp &&
-                          (window == 0 || kp > qp - window);
-          float s = 0.0f;
-          for (int d = 0; d < Dh; ++d) s = fmaf(Qs[r * Dh + d], Ks[t * (Dh + 1) + d], s);
-          Ps[r * TK + t] = ok ? s * sm : -INFINITY;
-        }
-      }
-      __syncthreads();
-      {   // online softmax per row: warp w owns rows w, w + 4, ...
-        const int lane = tid & 31, w = tid >> 5;
-        for (int r = w; r < R; r += NT / 32) {
-          const float s0 = Ps[r * TK + lane], s1 = Ps[r * TK + lane + 32];
-          float mx = fmaxf(fmaxf(s0, s1), NEG_INF);
-          for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-          const float m_prev = Ms[r], m_new = fmaxf(m_prev, mx);
-          const float p0 = s0 == -INFINITY ? 0.0f : expf(s0 - m_new);
-          const float p1 = s1 == -INFINITY ? 0.0f : expf(s1 - m_new);
-          float sum = p0 + p1;
-          for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-          Ps[r * TK + lane] = p0;
-          Ps[r * TK + lane + 32] = p1;
-          __syncwarp();
-          if (lane == 0) {
-            const float corr = expf(m_prev - m_new);
-            Cs[r] = corr;
-            Ls[r] = Ls[r] * corr + sum;
-            Ms[r] = m_new;
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
-        const int r = r0 + j * rstride;
-        if (r < R) {
-          float a = acc[j] * Cs[r];
-          for (int t = 0; t < TK; ++t) a = fmaf(Ps[r * TK + t], Vs[t * Dh + dcol], a);
-          acc[j] = a;
-        }
-      }
+  }
+};
+
+// One 64-key half's bytes for one decoder thread: K rows (w >> 3) + 16 j,
+// features 8 (w & 7) .. + 7; V rows 8 (w >> 4) .. + 7, features 4 (w & 15)
+// .. + 3.
+struct Raw {
+  uint32_t k[4][2];   // 8 codes (8-bit) or 8 nibbles in k[j][0]
+  uint32_t v[8];      // 4 codes (8-bit) or 4 nibbles in the low half
+  uint32_t ks[4], vs[8];   // E8M0 bytes, NO_ROW past the last valid key
+};
+
+// TMA: the 1D box of ``map`` at element c0 into shared ``dst``; its bytes
+// complete on ``bar``. Boxes past the end read zeros.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// The TMA maps of the K/V bytes a block reads: the pools' (N P rows) and
+// the chunk's (B C rows, as pass 1 wrote them). Codes: rows of D*bits/8
+// bytes, boxes of BH rows x CB bytes; scales: one run of bytes, boxes of
+// SR rows x D/32 bytes.
+struct Maps {
+  CUtensorMap kc[2], vc[2], ks[2], vs[2];   // [0] the pools, [1] the chunk
+};
+
+// How a tile's bytes land in a raw stage: K codes, V codes (128 rows of CB
+// bytes each: the head's bytes where they are a multiple of 16, else whole
+// rows), then the K and V scales, each box of SR rows in a 128-byte slot of
+// SP bytes. A tile takes 128 / BH code boxes per operand, BH = gcd(P, 64).
+struct Geo {
+  int CB, BH, SR, SP, RB, RAWST;
+  bool per_head;      // CB holds only the head's bytes
+};
+
+template <int kBits>
+__global__ void __launch_bounds__(NTH, 1)
+flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
+                     const float* __restrict__ q,
+                     const int* __restrict__ tables,
+                     const int* __restrict__ q_start,
+                     const int* __restrict__ kv_len, float* __restrict__ out,
+                     int B, int C, int H, int Dh, int D, int P, int maxp,
+                     int fmt, int window, int QT, int nqt) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = base;                          // [2 warpgroups][3 terms][OP]
+  // [RING][K half 0, K half 1, V half 0, V half 1][OP]: K as key rows, V as
+  // feature rows, 64 keys each
+  uint8_t* ring = Qs + 6 * OP_BYTES;
+  uint8_t* raw = ring + RING * 4 * OP_BYTES;   // [RAWST][RB]: TMA's bytes
+  uint32_t* tab = reinterpret_cast<uint32_t*>(raw + geo.RAWST * geo.RB);
+  int* pgs = reinterpret_cast<int*>(tab + 256);   // [PGCAP] the block's pages
+  uint64_t* full = reinterpret_cast<uint64_t*>(pgs + PGCAP);
+  uint64_t* empty = full + RING;
+  uint64_t* rawfull = empty + RING;            // [RAWST]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kvh = D / Dh, G = H / kvh;
+  constexpr int bits = kBits;
+  const int ns = D / 32;
+
+  // The block's (lane, query tile) item: the kvh blocks of an item are
+  // consecutive, and the items go in order of their key tiles, most first
+  // (ties: the later query tile, then the lower lane), which every block
+  // ranks alike from q_start and kv_len; past MAX_ITEMS items, in order of
+  // query tiles alone. Scratch: the ring, before the decoder writes it.
+  const int items = B * nqt, rank = blockIdx.x / kvh, hk = blockIdx.x % kvh;
+  int item = rank;                            // item (nqt - 1 - qt) B + b
+  if (items <= MAX_ITEMS && !(LEAVE_OUT & 64)) {
+    int* work = reinterpret_cast<int*>(ring);
+    int* pick = work + MAX_ITEMS;
+    for (int i = tid; i < items; i += NTH) {
+      const int bi = i % B, a = (nqt - 1 - i / B) * QT;
+      work[i] = Plan(q_start[bi], kv_len[bi], a, min(a + QT, C), C, window,
+                     maxp * P).n();
     }
+    __syncthreads();
+    for (int i = tid; i < items; i += NTH) {
+      const int wi = work[i];
+      int r = 0;
+#pragma unroll 8
+      for (int j = 0; j < items; ++j) {
+        const int wj = work[j];
+        r += wj > wi || (wj == wi && j < i);
+      }
+      if (r == rank) *pick = i;
+    }
+    __syncthreads();
+    item = *pick;
+  }
+  const int b = item % B, qt = nqt - 1 - item / B;
+  const int i0 = qt * QT, i1 = min(i0 + QT, C);
+  const int R = (i1 - i0) * G;
+  const int st = q_start[b], kl = kv_len[b];
+  const Plan pl(st, kl, i0, i1, C, window, maxp * P);
+  const int ntiles = pl.n();
+
+  // decode table: 8-bit formats, code -> bf16 value; 4-bit formats, byte ->
+  // bf16 pair of its two nibbles' values (low nibble first)
+  for (int i = tid; i < 256; i += NTH)
+    tab[i] = bf2_bits(bits == 8
+        ? __floats2bfloat162_rn(decode_code(fmt, i), 0.0f)
+        : __floats2bfloat162_rn(decode_code(fmt, i & 15),
+                                decode_code(fmt, i >> 4)));
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 4);          // lane 0 of each decoder warp
+      mbar_init(&empty[s], NCW);       // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < geo.RAWST; ++s) mbar_init(&rawfull[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+
+  if (warp >= NCW) {
+    // ---------------- decoder warpgroup ----------------
+    // Thread 0 keeps the raw ring full: the TMA boxes of tile t + RAWST go
+    // out once every decoder thread has read tile t's stage. Every thread
+    // decodes its share of each tile from shared memory; no decoder thread
+    // has a global load in flight at its proxy fence (which waits for all
+    // of them).
+    const int w = tid - 32 * NCW;
+    const int c8 = w & 7, grp = w >> 3;        // K: feature chunk, key rows
+    const int vk8 = w >> 4, vf4 = w & 15;      // V: key chunk, features
+    const bool kcol = 8 * c8 < Dh, vcol = 4 * vf4 < Dh;
+    const int hb = Dh * bits / 8;              // the head's bytes in a row
+    const int cin = geo.per_head ? 0 : hk * hb;
+    const int ksi = (hk * Dh + 8 * c8) >> 5, vsi = (hk * Dh + 4 * vf4) >> 5;
+    const int CB = geo.CB, BH = geo.BH, SR = geo.SR, SP = geo.SP;
+    const int nbox = TS / BH;                  // code boxes a tile
+    const int npc = BH / SR;                   // scale boxes a code box
+    const int sreg = nbox * npc * SP;          // a tile's scale bytes, slotted
+    const int srs = __ffs(SR) - 1;             // SR = 2^srs
+    // the page ids of the block's prefix keys, from shared memory where
+    // they fit (else from the table), so thread 0 has no global load in
+    // flight at its fence
+    const int pg0 = pl.pt0 / P;
+    const int npg = pl.npt > 0 ? (pl.phi - 1) / P - pg0 + 1 : 0;
+    const int* pages = tables + b * maxp;      // page id of page p:
+    int poff = 0;                              // pages[p - poff]
+    if (npg <= PGCAP) {
+      for (int i = w; i < npg; i += 128) pgs[i] = __ldg(pages + pg0 + i);
+      bar_sync(3, 128);
+      pages = pgs;
+      poff = pg0;
+    }
+    auto issue = [&](int t, int slot) {
+      int src, k0, hi;
+      pl.at(t, src, k0, hi);
+      uint8_t* rs = raw + slot * geo.RB;
+      uint64_t* bar = &rawfull[slot];
+      if constexpr (LEAVE_OUT & 1) {
+        mbar_arrive(bar);
+        return;
+      }
+      const int nb = min(nbox, (hi - k0 + BH - 1) / BH);   // boxes with a key
+      const int pb = SR * ns + (src ? 16 : 0);               // scale box bytes
+      mbar_expect_tx(bar, (uint32_t)nb * 2 * (BH * CB + npc * pb));
+      const int cx = geo.per_head ? hk * hb : 0;
+      for (int j = 0; j < nb; ++j) {
+        const int k = k0 + j * BH;
+        const int row = src ? b * C + k : pages[k / P - poff] * P + k % P;
+        tma_load_2d(rs + j * BH * CB, &maps.kc[src], bar, cx, row);
+        tma_load_2d(rs + (TS + j * BH) * CB, &maps.vc[src], bar, cx, row);
+        for (int p = 0; p < npc; ++p) {
+          // a box starts on 16 bytes: the chunk's from the 16 below
+          const int slot_off = 2 * TS * CB + (j * npc + p) * SP;
+          const int c0 = ((row + p * SR) * ns) & ~(src ? 15 : 0);
+          tma_load_1d(rs + slot_off, &maps.ks[src], bar, c0);
+          tma_load_1d(rs + slot_off + sreg, &maps.vs[src], bar, c0);
+        }
+      }
+    };
+    // this thread's bytes of half h (keys 64 h ..) of tile t, from raw
+    // stage ``rs``
+    auto fetch = [&](int t, int h, const uint8_t* rs, Raw& r) {
+      int src, k0, hi;
+      pl.at(t, src, k0, hi);
+      const uint8_t* kc = rs;
+      const uint8_t* vc = rs + TS * CB;
+      const uint8_t* kss = rs + 2 * TS * CB;
+      const uint8_t* vss = kss + sreg;
+      // scale bytes of tile row ``row``: its box's slot, the box's offset
+      // from 16 bytes (chunk rows b C + k need not start on 16), the row
+      auto srow = [&](int row) {
+        const int pc = row >> srs;
+        const int lead = src ? ((b * C + k0 + pc * SR) * ns) & 15 : 0;
+        return pc * SP + lead + (row & (SR - 1)) * ns;
+      };
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) {
-    const int r = r0 + j * rstride;
-    if (r < R) {
-      const int qi = i0 + r / G, g = r % G;
-      out[(((size_t)b * C + qi) * H + hk * G + g) * Dh + dcol] =
-          acc[j] / fmaxf(Ls[r], 1e-30f);
+      for (int j = 0; j < 4; ++j) {
+        const int row = TK * h + grp + 16 * j;
+        const uint8_t* p = kc + row * CB + cin;
+        if constexpr (bits == 8) {
+          const uint2 u = *reinterpret_cast<const uint2*>(p + 8 * c8);
+          r.k[j][0] = u.x;
+          r.k[j][1] = u.y;
+        } else {
+          r.k[j][0] = *reinterpret_cast<const uint32_t*>(p + 4 * c8);
+          r.k[j][1] = 0;
+        }
+        r.ks[j] = k0 + row < hi ? kss[srow(row) + ksi] : NO_ROW;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = TK * h + 8 * vk8 + i;
+        const uint8_t* p = vc + row * CB + cin;
+        r.v[i] = bits == 8
+            ? *reinterpret_cast<const uint32_t*>(p + 4 * vf4)
+            : (uint32_t)*reinterpret_cast<const unsigned short*>(p + 2 * vf4);
+        r.vs[i] = k0 + row < hi ? vss[srow(row) + vsi] : NO_ROW;
+      }
+    };
+    auto decode = [&](const Raw& raw, uint8_t* Kd, uint8_t* Vd) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t sb = scale_bits(raw.ks[j]);
+        const __nv_bfloat162 s = bf2(sb, sb);
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (bits == 8) {
+            const uint32_t wd = raw.k[j][i >> 1], sh = 16 * (i & 1);
+            o[i] = mul_bits(bf2(tab[(wd >> sh) & 0xFF],
+                                tab[(wd >> (sh + 8)) & 0xFF]), s);
+          } else {
+            const uint32_t e = tab[(raw.k[j][0] >> (8 * i)) & 0xFF];
+            o[i] = mul_bits(bf2(e & 0xFFFF, e >> 16), s);
+          }
+        }
+        *reinterpret_cast<uint4*>(Kd + swz(grp + 16 * j, c8)) =
+            kcol ? make_uint4(o[0], o[1], o[2], o[3]) : make_uint4(0, 0, 0, 0);
+      }
+      // V transposed: feature 4 vf4 + f, keys 8 vk8 .. + 7 in one chunk
+      uint32_t val[8][4];     // bf16 bits of (row i, feature f), unscaled
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if constexpr (bits == 8) {
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            val[i][f] = tab[(raw.v[i] >> (8 * f)) & 0xFF] & 0xFFFF;
+        } else {
+          const uint32_t e0 = tab[raw.v[i] & 0xFF];
+          const uint32_t e1 = tab[(raw.v[i] >> 8) & 0xFF];
+          val[i][0] = e0 & 0xFFFF; val[i][1] = e0 >> 16;
+          val[i][2] = e1 & 0xFFFF; val[i][3] = e1 >> 16;
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        uint32_t o[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          o[m] = mul_bits(bf2(val[2 * m][f], val[2 * m + 1][f]),
+                          bf2(scale_bits(raw.vs[2 * m]),
+                              scale_bits(raw.vs[2 * m + 1])));
+        *reinterpret_cast<uint4*>(Vd + swz(4 * vf4 + f, vk8)) =
+            vcol ? make_uint4(o[0], o[1], o[2], o[3]) : make_uint4(0, 0, 0, 0);
+      }
+    };
+
+    const int RAWST = geo.RAWST;
+    if (w == 0)
+      for (int t = 0; t < min(RAWST, ntiles); ++t) issue(t, t);
+    for (int t = 0; t < ntiles; ++t) {
+      const int rs = t % RAWST, s = t % RING;
+      int src, k0, hi;
+      pl.at(t, src, k0, hi);
+      mbar_wait(&rawfull[rs], (t / RAWST) & 1);
+      if (t >= RING) mbar_wait(&empty[s], ((t / RING) - 1) & 1);
+      if constexpr (!(LEAVE_OUT & 2)) {
+        uint8_t* st4 = ring + s * 4 * OP_BYTES;
+        for (int h = 0; h < 2 && k0 + TK * h < hi; ++h) {
+          Raw r;
+          fetch(t, h, raw + rs * geo.RB, r);
+          decode(r, st4 + h * OP_BYTES, st4 + (2 + h) * OP_BYTES);
+        }
+      }
+      // the stores above before wgmma reads them, and the reads of the raw
+      // stage before TMA writes it again
+      if constexpr (!(LEAVE_OUT & 32)) fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+      bar_sync(3, 128);
+      if (w == 0 && t + RAWST < ntiles) issue(t + RAWST, rs);
+    }
+    return;
+  }
+
+  // ---------------- consumer warpgroups ----------------
+  const int g = warp / 4, t128 = tid % 128;
+  uint8_t* Qg = Qs + g * 3 * OP_BYTES;
+  {
+    // rows 64 g + (t128 >> 3) + 16 j, features 8 (t128 & 7) .. + 7: the
+    // three bf16 terms of each, into their swizzled operand tiles
+    const int c8 = t128 & 7;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rl = (t128 >> 3) + 16 * j, r = 64 * g + rl;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (r < R && 8 * c8 < Dh) {
+        const int i = i0 + r / G, h = hk * G + r % G;
+        const float4* p = reinterpret_cast<const float4*>(
+            q + (((size_t)b * C + i) * H + h) * Dh + 8 * c8);
+        const float4 a0 = __ldg(p), a1 = __ldg(p + 1);
+        v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
+        v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
+      }
+      uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split3(v[2 * i], v[2 * i + 1], hi[i], mid[i], lo[i]);
+      const int off = swz(rl, c8);
+      *reinterpret_cast<uint4*>(Qg + off) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(Qg + OP_BYTES + off) =
+          make_uint4(mid[0], mid[1], mid[2], mid[3]);
+      *reinterpret_cast<uint4*>(Qg + 2 * OP_BYTES + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_proxy_async();
+    bar_sync(1 + g, 128);
+  }
+
+  // this thread's fragment rows ra, rb = ra + 8 and their query positions;
+  // the warpgroup's first and last position
+  const int ra = 64 * g + 16 * (warp % 4) + lane / 4, rb = ra + 8;
+  const int qpa = st + i0 + ra / G, qpb = st + i0 + rb / G;
+  const bool has_rows = 64 * g < R;
+  const int qmin = st + i0 + (64 * g) / G;
+  const int qmax = st + i0 + (min(64 * g + 63, R - 1)) / G;
+  const float sm = 1.0f / sqrtf((float)Dh);
+  const uint32_t qa = smem_u32(Qg);
+
+  float o[32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.0f;
+  float ma = NEG_INF, mb = NEG_INF, la = 0.0f, lb = 0.0f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int slot = t % RING;
+    int src, k0t, hi;
+    pl.at(t, src, k0t, hi);
+    const int kb = src ? st : 0;               // position of key k: kb + k
+    mbar_wait(&full[slot], (t / RING) & 1);
+    for (int hf = 0; hf < 2; ++hf) {           // the stage's two 64-key halves
+      const int k0 = k0t + TK * hf;
+      if (k0 >= hi) break;
+      const int kpf = kb + k0, kpl = kb + min(k0 + TK, hi) - 1;
+      if (!has_rows || kpf > qmax || (window > 0 && kpl <= qmin - window))
+        continue;
+      const bool masked = !(k0 + TK <= hi && kpf + TK - 1 <= qmin &&
+                            (window == 0 || kpf > qmax - window));
+      const uint32_t ka = smem_u32(ring + (4 * slot + hf) * OP_BYTES);
+      const uint32_t va = smem_u32(ring + (4 * slot + 2 + hf) * OP_BYTES);
+      // S = (Q_hi + Q_mid + Q_lo) K^T
+      fence_regs(s);
+      if constexpr (!(LEAVE_OUT & 4)) {
+        wgmma_fence();
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma64_ss(s, desc_b128(qa + term * OP_BYTES + 32 * kk),
+                       desc_b128(ka + 32 * kk), term > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait0();
+      }
+      fence_regs(s);
+
+      if constexpr (!(LEAVE_OUT & 8)) {
+        // online softmax on the fragment: element 4 j + e is row (e < 2 ?
+        // ra : rb), key column c = 8 j + 2 (lane % 4) + (e & 1) of the tile.
+        // On a tile that crosses a bound, column c of a row is valid iff
+        // lo <= c < hi for the row's bounds (the source's end, causal,
+        // window); a masked score is -inf, whose exp is 0.
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= sm;
+        if (masked) {
+          // bounds less this thread's first column 2 (lane % 4)
+          const int c0 = 2 * (lane % 4), base = kb + k0;
+          const int hia = min(hi - k0, qpa - base + 1) - c0;
+          const int hib = min(hi - k0, qpb - base + 1) - c0;
+          const int loa = (window > 0 ? qpa - window - base + 1 : 0) - c0;
+          const int lob = (window > 0 ? qpb - window - base + 1 : 0) - c0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + (e & 1);
+              const bool ok = e < 2 ? c >= loa && c < hia
+                                    : c >= lob && c < hib;
+              s[4 * j + e] = ok ? s[4 * j + e] : -INFINITY;
+            }
+        }
+        float mxa = NEG_INF, mxb = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mxa = fmaxf(mxa, fmaxf(s[4 * j], s[4 * j + 1]));
+          mxb = fmaxf(mxb, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+          mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
+        }
+        const float mna = fmaxf(ma, mxa), mnb = fmaxf(mb, mxb);
+        float suma = 0.0f, sumb = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = expf(s[4 * j + e] - (e < 2 ? mna : mnb));
+            s[4 * j + e] = p;
+            if (e < 2) suma += p; else sumb += p;
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          suma += __shfl_xor_sync(0xffffffffu, suma, off);
+          sumb += __shfl_xor_sync(0xffffffffu, sumb, off);
+        }
+        const float ca = expf(ma - mna), cb = expf(mb - mnb);
+        la = la * ca + suma;
+        lb = lb * cb + sumb;
+        ma = mna;
+        mb = mnb;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[4 * j] *= ca; o[4 * j + 1] *= ca;
+          o[4 * j + 2] *= cb; o[4 * j + 3] *= cb;
+        }
+      }
+
+      // P as the A operand: k16 step kk holds keys 16 kk .. + 15, i.e.
+      // fragment columns j = 2 kk, 2 kk + 1 (mma's m16k16 A layout)
+      uint32_t pa[3][4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pa[0][kk][r],
+                 pa[1][kk][r], pa[2][kk][r]);
+      // O += (P_hi + P_mid + P_lo) V
+      fence_regs(o);
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[term][kk]);
+      if constexpr (!(LEAVE_OUT & 4)) {
+        wgmma_fence();
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma64_rs(o, pa[term][kk], desc_b128(va + 32 * kk));
+        wgmma_commit();
+        wgmma_wait0();
+      }
+      fence_regs(o);
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[term][kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+
+  // out = O / max(l, 1e-30): element 4 j + e is row (e < 2 ? ra : rb),
+  // feature 8 j + 2 (lane % 4) + (e & 1)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= R) continue;
+    const float l = fmaxf(half ? lb : la, 1e-30f);
+    const int i = i0 + r / G, h = hk * G + r % G;
+    float* dst = out + (((size_t)b * C + i) * H + h) * Dh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < Dh)
+        *reinterpret_cast<float2*>(dst + col) =
+            make_float2(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
     }
   }
 }
+
+// A 1D tensor map (TMA descriptor) of ``n`` bytes at ``base``, read in
+// boxes of ``box`` bytes (cuTensorMapEncodeTiled through the CUDA runtime,
+// as ``mxgemm::tensor_map`` finds it for 2D maps).
+cudaError_t tensor_map_1d(CUtensorMap* map, const void* base, uint64_t n,
+                          uint32_t box) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static const Encode fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                   cudaEnableDefault, &found) == cudaSuccess
+                   && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(f)
+               : nullptr;
+  }();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {n}, strides[1] = {0};
+  const cuuint32_t boxd[1] = {box}, unit[1] = {1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, const_cast<void*>(base), dims,
+      strides, boxd, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
 }  // namespace
 
@@ -202,37 +818,82 @@ extern "C" int mx_flash_prefill_launch(
     const void* q_start, const void* kv_len, void* out, void* kc, void* ks,
     void* vc, void* vs, int B, int C, int H, int Dh, int D, int P, int maxp,
     int fmt, int window, void* stream) {
-  // shapes the tiling takes: Dh divides the block, the per-thread
-  // accumulators (MAXR * Dh / NT <= 32) cover one block's rows, and a block
-  // holds at least one query position's G heads
-  if (Dh <= 0 || NT % Dh != 0 || D % Dh != 0 || D % 32 != 0 ||
-      H % (D / Dh) != 0 || MAXR * Dh > 32 * NT)
+  // shapes the tiling takes: a head fits one 128-byte bf16 operand row in
+  // k16 steps, a block holds at least one query position's G heads, pages
+  // of a multiple of 16 rows; TMA reads 16-byte aligned bytes, the loads
+  // 16-byte aligned f32 inputs
+  if (Dh <= 0 || Dh % 16 != 0 || Dh > 64 || D % Dh != 0 || D % 32 != 0 ||
+      H % (D / Dh) != 0 || P <= 0 || P % 16 != 0 || maxp <= 0)
     return (int)cudaErrorInvalidValue;
-  const int kvh = D / Dh, G = H / kvh;
-  if (G > MAXR) return (int)cudaErrorInvalidValue;
+  const int kvh = D / Dh, G = H / kvh, bits = fmt_bits(fmt);
+  const int db = D * bits / 8, ns = D / 32, hb = Dh * bits / 8;
+  if (G > ROWS) return (int)cudaErrorInvalidValue;
+  Geo geo;
+  geo.per_head = hb % 16 == 0;
+  geo.CB = geo.per_head ? hb : db;
+  geo.BH = gcd(P, TK);
+  geo.SR = geo.BH;                 // a chunk's scale box has 16 bytes more
+  while (geo.SR * ns + 16 > 256 && geo.SR > 1) geo.SR /= 2;
+  geo.SP = (geo.SR * ns + 16 + 127) / 128 * 128;
+  geo.RB = 2 * TS * geo.CB + 2 * (TS / geo.SR) * geo.SP;
+  if (geo.CB > 256 || geo.SR * ns % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  auto smem = [&](int rawst) {
+    return SMEM_BYTES + (size_t)rawst * (geo.RB + sizeof(uint64_t));
+  };
+  geo.RAWST = 4;
+  while (geo.RAWST > 2 && smem(geo.RAWST) > 227 * 1024) --geo.RAWST;
+  if (smem(geo.RAWST) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto at = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if ((at(kcp) | at(vcp) | at(kc) | at(vc) | at(ksp) | at(vsp) | at(ks) |
+       at(vs) | at(q) | at(k_chunk) | at(v_chunk)) % 16 != 0 ||
+      at(out) % 8 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  if (B == 0 || C == 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const long long nblk = (long long)B * C * (D / 32);
-  const int tpb = 128;
-  const unsigned qgrid = (unsigned)((nblk + tpb - 1) / tpb);
-  kv_quant_kernel<<<qgrid, tpb, 0, s>>>(static_cast<const float*>(k_chunk),
-                                        static_cast<uint8_t*>(kc),
-                                        static_cast<uint8_t*>(ks), nblk, fmt);
-  kv_quant_kernel<<<qgrid, tpb, 0, s>>>(static_cast<const float*>(v_chunk),
-                                        static_cast<uint8_t*>(vc),
-                                        static_cast<uint8_t*>(vs), nblk, fmt);
-  const int QT = MAXR / G;
-  const size_t shm = sizeof(float) *
-      (MAXR * Dh + TK * (Dh + 1) + TK * Dh + MAXR * TK + 3 * MAXR);
-  cudaFuncSetAttribute(flash_prefill_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  dim3 grid((C + QT - 1) / QT, kvh, B);
-  flash_prefill_kernel<<<grid, NT, shm, s>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(kcp),
-      static_cast<const uint8_t*>(ksp), static_cast<const uint8_t*>(vcp),
-      static_cast<const uint8_t*>(vsp), static_cast<const uint8_t*>(kc),
-      static_cast<const uint8_t*>(ks), static_cast<const uint8_t*>(vc),
-      static_cast<const uint8_t*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(q_start), static_cast<const int*>(kv_len),
-      static_cast<float*>(out), C, H, Dh, D, P, maxp, fmt, window, QT);
+  const unsigned qgrid = (unsigned)((nblk + 4 * QWARPS - 1) / (4 * QWARPS));
+  kv_quant_kernel<<<qgrid, 32 * QWARPS, 0, s>>>(
+      static_cast<const float*>(k_chunk), static_cast<uint8_t*>(kc),
+      static_cast<uint8_t*>(ks), nblk, fmt);
+  kv_quant_kernel<<<qgrid, 32 * QWARPS, 0, s>>>(
+      static_cast<const float*>(v_chunk), static_cast<uint8_t*>(vc),
+      static_cast<uint8_t*>(vs), nblk, fmt);
+  // The pools' maps span the largest row count a map may have: the pool's
+  // own size is not an argument, and every row read is one the block table
+  // names.
+  Maps maps;
+  const uint64_t pool_rows = (1ull << 31) / ns, rows = (uint64_t)B * C;
+  const void* pools[2][2] = {{kcp, vcp}, {ksp, vsp}};
+  const void* chunk[2][2] = {{kc, vc}, {ks, vs}};
+  cudaError_t e = cudaSuccess;
+  for (int kv = 0; kv < 2 && e == cudaSuccess; ++kv) {
+    CUtensorMap* cm = kv ? maps.vc : maps.kc;
+    CUtensorMap* sm = kv ? maps.vs : maps.ks;
+    e = mxgemm::tensor_map(&cm[0], CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                           pools[0][kv], db, pool_rows, db, geo.CB, geo.BH,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e == cudaSuccess)
+      e = mxgemm::tensor_map(&cm[1], CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                             chunk[0][kv], db, rows, db, geo.CB, geo.BH,
+                             CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e == cudaSuccess)
+      e = tensor_map_1d(&sm[0], pools[1][kv], pool_rows * ns,
+                        geo.SR * ns);
+    if (e == cudaSuccess)
+      e = tensor_map_1d(&sm[1], chunk[1][kv], rows * ns, geo.SR * ns + 16);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int QT = ROWS / G, nqt = (C + QT - 1) / QT;
+  auto kernel = bits == 8 ? flash_prefill_kernel<8> : flash_prefill_kernel<4>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem(geo.RAWST));
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<nqt * B * kvh, NTH, smem(geo.RAWST), s>>>(
+      maps, geo, static_cast<const float*>(q),
+      static_cast<const int*>(tables), static_cast<const int*>(q_start),
+      static_cast<const int*>(kv_len), static_cast<float*>(out), B, C, H, Dh,
+      D, P, maxp, fmt, window, QT, nqt);
   return (int)cudaGetLastError();
 }

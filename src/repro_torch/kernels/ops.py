@@ -455,7 +455,14 @@ def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
     k_scale_bytes (B, C, D//32) u8, v_code_bytes, v_scale_bytes)``; the
     byte outputs equal ``packing.kv_encode`` of the chunk and attention
     reads their round trip, so scattering them into the pool is
-    write-then-read exact."""
+    write-then-read exact.
+
+    On the card one call launches three kernels (``csrc/mx_prefill.cu``):
+    ``kv_quant_kernel`` twice, encoding the chunk's K and V into the byte
+    outputs, then ``flash_prefill_kernel``, the attention on the tensor
+    cores. It takes Dh a multiple of 16 up to 64, at most 128 query heads
+    per KV head and pages of a multiple of 16 rows, and raises on any other
+    shape."""
     if not _flash_prefill_contract(q, k_chunk, v_chunk, k_codes, k_scales,
                                    v_codes, v_scales, block_tables, fmt):
         raise ValueError(
@@ -479,14 +486,15 @@ def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
     N, P, db = k_codes.shape
     D = k_scales.shape[2] * 32
     dev = q.device
-    qf = q.float().contiguous()
-    kd = k_chunk.float().contiguous()
-    vd = v_chunk.float().contiguous()
+    qf = _aligned(q, torch.float32)
+    kd, vd = _aligned(k_chunk, torch.float32), _aligned(v_chunk,
+                                                         torch.float32)
     bt = block_tables.to(torch.int32).contiguous()
     st = _lane_vec(q_start, B, dev)
     kl = _lane_vec(kv_len, B, dev)
-    kcp, ksp, vcp, vsp = (t.contiguous() for t in (k_codes, k_scales,
-                                                    v_codes, v_scales))
+    kcp, vcp = _aligned(k_codes, torch.uint8), _aligned(v_codes, torch.uint8)
+    ksp, vsp = _aligned(k_scales, torch.uint8), _aligned(v_scales,
+                                                          torch.uint8)
     out = torch.empty((B, C, H, Dh), dtype=torch.float32, device=dev)
     kc = torch.empty((B, C, db), dtype=torch.uint8, device=dev)
     ks = torch.empty((B, C, D // 32), dtype=torch.uint8, device=dev)

@@ -318,3 +318,84 @@ def test_cuda_split_decode_head_widths(cuda_device, Dh, layout):
     for fmt in ("mxfp8", "mxfp4"):
         out, ref = _decode_case(cuda_device, "long", fmt, layout, Dh=Dh)
         assert (out - ref).abs().max() <= 1e-5
+
+
+def _prefill_case(dev, fmt, C, starts, short=None, window=0, P=64, maxp=32,
+                  H=14, kvh=2, Dh=64, seed=8):
+    """(kernel outputs, plain outputs, call) of a chunk of C rows per lane at
+    ``starts`` over a pool of P-row pages, each lane's table slots
+    scattered over the pool (slots past its fill on the scrap page 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, D = len(starts), kvh * Dh
+    n_pages = 1 + B * maxp
+    kc, ks = kv_encode(torch.randn(n_pages, P, D, generator=g, device=dev),
+                       fmt)
+    vc, vs = kv_encode(torch.randn(n_pages, P, D, generator=g, device=dev),
+                       fmt)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    kl = st + C - torch.tensor(short or [0] * B, dtype=torch.int32,
+                               device=dev)
+    bt = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).reshape(
+        B, maxp).to(torch.int32)
+    for b, s in enumerate(starts):
+        bt[b, -(-(s + C) // P):] = 0
+    q = torch.randn(B, C, H, Dh, generator=g, device=dev)
+    kd = torch.randn(B, C, D, generator=g, device=dev)
+    vd = torch.randn(B, C, D, generator=g, device=dev)
+    args = (q, kd, vd, kc, ks, vc, vs, bt, st, kl, fmt)
+
+    def call():
+        return tops.mx_flash_prefill(*args, window=window)
+    return call(), tref.mx_prefill_ref(*args, window=window), call
+
+
+def _prefill_close(outs, refs):
+    assert (outs[0] - refs[0]).abs().max() <= 1e-4
+    for a, b in zip(outs[1:], refs[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxint8", "mxfp4", "mxint4"))
+@pytest.mark.parametrize("case", ("full", "window", "ragged"))
+def test_cuda_prefill_on_64_row_pages(cuda_device, fmt, case):
+    """The flash-prefill on 64-row pages (the engine's page at attn_chunk
+    64) through 32-slot scattered tables, G = 7: whole 1024-row chunks over
+    prefixes of 0 to 1024 rows (one mid-page); a 300-key window; a 77-row
+    chunk at mid-page starts with fills short of the chunk's end. Within
+    1e-4 of the plain version, chunk bytes equal to kv_encode, two calls
+    bitwise equal."""
+    C, starts, short, window = {
+        "full": (1024, [0, 1024, 640, 337], None, 0),
+        "window": (512, [0, 900, 333], None, 300),
+        "ragged": (77, [5, 1100, 205], [0, 3, 40], 0)}[case]
+    outs, refs, call = _prefill_case(cuda_device, fmt, C, starts, short,
+                                     window)
+    _prefill_close(outs, refs)
+    assert torch.equal(outs[0], call()[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,H,kvh", ((16, 8, 2), (32, 4, 4), (64, 28, 1)))
+def test_cuda_prefill_head_shapes(cuda_device, Dh, H, kvh):
+    """Heads narrower than the 64-wide operand row (Dh = 16, the reduced
+    Qwen2 config's; 32), one head per KV head (G = 1, 128 positions a block)
+    and 28 (4 positions a block), on 32-row pages (two a key tile)."""
+    for fmt in ("mxfp8", "mxfp4"):
+        outs, refs, _ = _prefill_case(cuda_device, fmt, 100, [0, 70, 13],
+                                      P=32, maxp=8, H=H, kvh=kvh, Dh=Dh)
+        _prefill_close(outs, refs)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_refuses_wide_heads(cuda_device):
+    """Dh = 128 does not fit the kernel's operand row: the wrapper raises
+    (no plain-version fallback on the card)."""
+    dev = cuda_device
+    kc, ks = kv_encode(torch.randn(3, 32, 256, device=dev))
+    x = torch.randn(1, 8, 256, device=dev)
+    bt = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        tops.mx_flash_prefill(torch.randn(1, 8, 4, 128, device=dev), x, x,
+                              kc, ks, kc, ks, bt, st, st + 8)
