@@ -11,7 +11,8 @@ Phases, in order (each raises on failure; nothing is caught):
    the card, at the Qwen2-0.5B shapes of the serving path (the packed GEMM
    at the decode shape M = 4, the prefill shape M = 4096, and the main
    path's chunk and wave prefill rows, M = 1024 and 5296, at (896, 4864);
-   the flash-prefill on 1024-row and on 64-row pages), with the times of
+   the flash-prefill on 1024-row and on 64-row pages, and again at
+   Qwen2-7B's heads, 28 over 4 KV heads of 128), with the times of
    the kernel, the plain version and one PyTorch library
    call (where one computes the same function) — device time from
    ``torch.profiler``, and per call with the wrapper included by CUDA
@@ -29,7 +30,11 @@ Phases, in order (each raises on failure; nothing is caught):
    step of each
    layout again with every kernel call held against its plain version on
    the same inputs; the paged path's fused logits and greedy tokens
-   compared with the reference backend's;
+   compared with the reference backend's. Then a fourth path: Qwen2-7B at
+   its published widths, its depth cut to 4 of 28 layers, served the same
+   way on the paged cache (continuous scheduler), with the same checks, a
+   profile and a prefill and decode step held call by call against the
+   plain versions;
 4. the standalone kernel entry points (``ops.mx_quantize``,
    ``ops.t3_quantize``, ``ops.mx_gemm``) driven as a caller would, on a
    weight and activations of the served model's widths.
@@ -345,19 +350,24 @@ def check_decode(torch, dev, gen):
 
 
 def check_prefill(torch, dev, gen, seed: int):
-    """The flash-prefill on 1024-row pages (2 table slots, the served
-    model's page at attn_chunk 1024) and on 64-row pages (32 slots, the
-    engine's page at attn_chunk 64); the second draws from its own
-    generator, so every check after keeps its inputs."""
+    """The flash-prefill at Qwen2-0.5B's heads (14 over 2 KV heads of 64) on
+    1024-row pages (2 table slots, the served model's page at attn_chunk
+    1024) and on 64-row pages (32 slots, the engine's page at attn_chunk
+    64), then at Qwen2-7B's (28 over 4 KV heads of 128) on both. The second
+    draws from its own generator and the two at Qwen2-7B's heads from
+    another, so every check after keeps its inputs."""
     gen64 = torch.Generator(device=dev).manual_seed(seed + 64)
+    gen7b = torch.Generator(device=dev).manual_seed(seed + 128)
     return [_prefill_pages(torch, dev, gen, 1024, 2),
-            _prefill_pages(torch, dev, gen64, 64, 32)]
+            _prefill_pages(torch, dev, gen64, 64, 32),
+            _prefill_pages(torch, dev, gen7b, 1024, 2, H=28, kvh=4, Dh=128),
+            _prefill_pages(torch, dev, gen7b, 64, 32, H=28, kvh=4, Dh=128)]
 
 
-def _prefill_pages(torch, dev, gen, P, maxp):
+def _prefill_pages(torch, dev, gen, P, maxp, H=14, kvh=2, Dh=64):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    B, C, H, kvh, Dh = 4, 1024, 14, 2, 64
+    B, C = 4, 1024
     D, G, n_pages = kvh * Dh, H // kvh, 1 + 4 * maxp
     entry = None
     for fmt, starts in (("mxfp8", [0, 1024, 0, 0]), ("mxfp8", [512, 0, 0, 7]),
@@ -376,11 +386,12 @@ def _prefill_pages(torch, dev, gen, P, maxp):
         torch.cuda.synchronize()
         err = (outs[0] - plains[0]).abs().max().item()
         same = all(torch.equal(a, b) for a, b in zip(outs[1:], plains[1:]))
-        log(f"prefill {fmt} q_start={starts} P={P}: max_abs_err {err:.3e}, "
-            f"chunk bytes equal to kv_encode: {same}")
+        log(f"prefill {fmt} q_start={starts} P={P} Dh={Dh}: max_abs_err "
+            f"{err:.3e}, chunk bytes equal to kv_encode: {same}")
         if not (err <= 1e-4 and same):
             raise AssertionError(f"mx_flash_prefill disagrees with its plain "
-                                 f"version ({fmt}, q_start {starts}, P {P})")
+                                 f"version ({fmt}, q_start {starts}, P {P}, "
+                                 f"Dh {Dh})")
         if fmt != "mxfp8" or starts[1] != 1024:
             continue
         # library yardstick: SDPA over the decoded logical cache, with the
@@ -400,7 +411,8 @@ def _prefill_pages(torch, dev, gen, P, maxp):
         mask = ((kp[None, None, :] <= qpos[:, :, None])
                 & (kp[None, None, :] < kl[:, None, None].long()))[:, None]
         qh = q.transpose(1, 2).contiguous()
-        t = timed(torch, f"prefill {fmt} B={B} C={C} q_start={starts} P={P}",
+        t = timed(torch, f"prefill {fmt} B={B} C={C} H={H} kvh={kvh} "
+                         f"Dh={Dh} q_start={starts} P={P}",
                   lambda: ops.mx_flash_prefill(q, kd, vd, kc, ks, vc, vs, bt,
                                                st, kl, fmt),
                   lambda: ref.mx_prefill_ref(q, kd, vd, kc, ks, vc, vs, bt,
@@ -412,12 +424,15 @@ def _prefill_pages(torch, dev, gen, P, maxp):
                   + 2 * B * C * row + 2 * sum(starts) * row + bt.numel() * 4)
         keys = sum(C * s + C * (C + 1) // 2 for s in starts)
         b, by = bound_ms(nbytes, 4.0 * H * Dh * keys, PEAK_BF16)
-        log(f"prefill {fmt} B={B} C={C} q_start={starts} P={P}: bound_ms "
-            f"{b:.4f} ({by}), share of the bound {b / t['ms']:.3f}")
+        log(f"prefill {fmt} B={B} C={C} H={H} kvh={kvh} Dh={Dh} "
+            f"q_start={starts} P={P}: bound_ms {b:.4f} ({by}), share of the "
+            f"bound {b / t['ms']:.3f}")
+        # launches: those of the served path at these heads
         entry = {"name": "mx_flash_prefill",
                  "shape": f"B={B} C={C} H={H} kvh={kvh} Dh={Dh} P={P} "
                           f"q_start={starts} {fmt}",
-                 "max_abs_err": err, **t, "bound_ms": b, "bound_by": by}
+                 "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
+                 "path": "paged" if Dh == 64 else "paged_qwen2_7b"}
     return entry
 
 
@@ -700,7 +715,7 @@ def prefill_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
         log(f"prefill step: {ms:9.3f} ms {cnt:5d}x  {key[:90]}")
 
 
-def serve(torch, Engine, Request, art, prompts, cfg, **kw):
+def serve(torch, Engine, Request, art, prompts, cfg, tag="", **kw):
     """One served run of ``prompts`` x 32 greedy tokens with the launch
     counts zeroed just before and read just after. Returns (engine,
     requests, launches, stats)."""
@@ -717,7 +732,7 @@ def serve(torch, Engine, Request, art, prompts, cfg, **kw):
     launches = dict(ops.launches)
     st = eng.stats()
     toks = sum(len(r.out) for r in reqs)
-    label = f"{kw['scheduler']}/{kw['kv_layout']}"
+    label = f"{kw['scheduler']}/{kw['kv_layout']}{tag}"
     log(f"e2e {label}: {len(reqs)} requests, {toks} tokens in {dt:.3f} s = "
         f"{toks / dt:.1f} tok/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -796,52 +811,20 @@ def end_to_end(torch, dev, seed: int):
         eng, reqs, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
                                   **kw)
         launches["paged"] = lp
-    if st["prefix_hit_tokens"] <= 0:
-        raise AssertionError("the shared prefix was not served from cache")
-    eng._alloc.check()
-    if eng._alloc.in_use:
-        raise AssertionError(f"{eng._alloc.in_use} pages still in use")
-    for name in PAGED_KERNELS:
-        if lp[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"paged path")
-    if lp["mx_flash_decode_paged"] != st["decode_steps"] * L:
-        raise AssertionError(
-            f"decode kernel launched {lp['mx_flash_decode_paged']}x, "
-            f"expected decode_steps x layers = {st['decode_steps'] * L}")
+    check_paged_run(eng, lp, st, L, "")
     profile_serving(torch, eng, Request, cfg, seed, "continuous/paged")
 
     # The first prefill and one decode step again, fused, with every kernel
     # call held against its plain version on the same inputs: the values
     # the reference backend computes at that call, at all layers.
-    P, C = eng.page_size, cfg.attn_chunk
     p0 = prompts[0]
     fused = qm.with_backend("fused")
-    worst = teacher_forced(torch, ops, lambda q: prefill_and_step(
-        torch, transformer, params, cfg, q, eng.kv_quant, P, C, p0, dev),
-        fused)
-    log("e2e paged teacher-forced, worst error per kernel call: "
-        + json.dumps(worst))
+    paged_teacher_forced(torch, transformer, params, cfg, qm, eng, p0, dev,
+                         "")
     worst = teacher_forced(torch, ops, lambda q: contiguous_prefill_and_step(
         torch, transformer, params, cfg, q, eng.kv_quant, p0, dev), fused)
     log("e2e contiguous teacher-forced, worst error per kernel call: "
         + json.dumps(worst))
-    # Full depth, fused against reference. An attention output that moves by
-    # 1e-7 flips an activation code at a grid midpoint downstream, and the
-    # flips compound layer by layer through random weights, so these logits
-    # are compared loosely (a wiring fault decorrelates them entirely).
-    logits = {b: prefill_and_step(torch, transformer, params, cfg,
-                                  qm.with_backend(b), eng.kv_quant, P, C, p0,
-                                  dev)[0] for b in ("fused", "ref")}
-    diff = (logits["fused"] - logits["ref"]).abs().max().item()
-    scale = logits["ref"].abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(
-        logits["fused"], logits["ref"], dim=0).item()
-    log(f"e2e: fused vs ref prefill logits max|diff| {diff:.4e}, "
-        f"max|logit| {scale:.4e}, cosine {cos:.4f}, same argmax "
-        f"{bool(logits['fused'].argmax() == logits['ref'].argmax())}")
-    if not cos >= 0.5:
-        raise AssertionError("fused prefill logits are unrelated to ref")
     ref_eng = Engine(params, cfg, qm.with_backend("ref"), **kw)
     ref_reqs = [Request(prompt=p, max_new=32) for p in prompts]
     ref_eng.generate(ref_reqs)
@@ -849,7 +832,114 @@ def end_to_end(torch, dev, seed: int):
                 for a, b in zip(r.out.tolist(), s.out.tolist()))
     log(f"e2e: paged greedy tokens fused == ref: {agree}/"
         f"{sum(len(r.out) for r in reqs)}")
+    del eng, ref_eng
+    launches["paged_qwen2_7b"] = qwen2_7b_path(torch, dev, seed)
     return launches, params
+
+
+def check_paged_run(eng, lp, st, L, tag):
+    """A paged run served the shared prefix from cache, returned every page,
+    launched each paged kernel, and the paged decode once per layer per
+    decode step."""
+    if st["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"paged{tag}: the shared prefix was not served "
+                             f"from cache")
+    eng._alloc.check()
+    if eng._alloc.in_use:
+        raise AssertionError(f"paged{tag}: {eng._alloc.in_use} pages still "
+                             f"in use")
+    for name in PAGED_KERNELS:
+        if lp[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"paged{tag} path")
+    if lp["mx_flash_decode_paged"] != st["decode_steps"] * L:
+        raise AssertionError(
+            f"paged{tag}: decode kernel launched "
+            f"{lp['mx_flash_decode_paged']}x, expected decode_steps x layers "
+            f"= {st['decode_steps'] * L}")
+
+
+def paged_teacher_forced(torch, transformer, params, cfg, qm, eng, prompt,
+                         dev, tag):
+    """The first prefill and one decode step of ``prompt`` on the paged
+    cache, fused, with every kernel call held against its plain version;
+    then the fused prefill logits against the reference backend's. An
+    attention output that moves by 1e-7 flips an activation code at a grid
+    midpoint downstream, and the flips compound layer by layer through
+    random weights, so those logits are compared loosely (a wiring fault
+    decorrelates them entirely)."""
+    from repro_torch.kernels import ops
+    P, C = eng.page_size, cfg.attn_chunk
+    worst = teacher_forced(torch, ops, lambda q: prefill_and_step(
+        torch, transformer, params, cfg, q, eng.kv_quant, P, C, prompt, dev),
+        qm.with_backend("fused"))
+    log(f"e2e paged{tag} teacher-forced, worst error per kernel call: "
+        + json.dumps(worst))
+    logits = {b: prefill_and_step(torch, transformer, params, cfg,
+                                  qm.with_backend(b), eng.kv_quant, P, C,
+                                  prompt, dev)[0] for b in ("fused", "ref")}
+    diff = (logits["fused"] - logits["ref"]).abs().max().item()
+    scale = logits["ref"].abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        logits["fused"], logits["ref"], dim=0).item()
+    log(f"e2e{tag}: fused vs ref prefill logits max|diff| {diff:.4e}, "
+        f"max|logit| {scale:.4e}, cosine {cos:.4f}, same argmax "
+        f"{bool(logits['fused'].argmax() == logits['ref'].argmax())}")
+    if not cos >= 0.5:
+        raise AssertionError(f"paged{tag}: fused prefill logits are "
+                             f"unrelated to ref")
+
+
+QWEN2_7B_LAYERS = 4      # of its 28: the smoke's time and memory
+
+
+def qwen2_7b_path(torch, dev, seed: int):
+    """The paged path at Qwen2-7B's published widths (d_model 3584, 28 heads
+    over 4 KV heads of 128, d_ff 18944, vocab 152064, untied head), its
+    depth cut to QWEN2_7B_LAYERS: random weights from the seed, RTN mxfp4
+    with the T3 rotation, exported and served by ``Engine.from_artifact``
+    (continuous scheduler, paged mxfp8 cache, 4 lanes, max_len 2048) on
+    ``traffic``'s prompts drawn from its vocabulary, 32 greedy tokens each,
+    with the launch counts zeroed just before and read just after; the
+    paged run's checks, a profile, and one prefill and decode step held
+    call by call against the plain versions. Returns the launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.core import ptq
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine, Request
+
+    full = configs.get("qwen2-7b")
+    cfg = dataclasses.replace(full, n_layers=QWEN2_7B_LAYERS)
+    log(f"e2e qwen2-7b: reduced: depth {cfg.n_layers} of {full.n_layers} "
+        f"layers (published widths otherwise)")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    t0 = time.perf_counter()
+    params = transformer.init(gen, cfg, device=dev)
+    res = ptq.apply_method("rtn", params, cfg, fmt="mxfp4")
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    del params
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    tag = " qwen2-7b"
+    with tempfile.TemporaryDirectory() as tmp:
+        art = pathlib.Path(tmp) / "qwen2-7b-mxfp4"
+        export_artifact(res, cfg, art)
+        del res
+        torch.cuda.synchronize()
+        log(f"e2e qwen2-7b: init + RTN + export "
+            f"{time.perf_counter() - t0:.1f} s ({cfg.n_layers} layers)")
+        params, _, qm = load_artifact(art, device=dev)
+        eng, _, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
+                               tag=tag, scheduler="continuous",
+                               kv_layout="paged", batch_size=4, max_len=2048,
+                               kv_cache="mxfp8", device=dev)
+    check_paged_run(eng, lp, st, cfg.n_layers, tag)
+    profile_serving(torch, eng, Request, cfg, seed, "continuous/paged" + tag)
+    paged_teacher_forced(torch, transformer, params, cfg, qm, eng,
+                         prompts[0], dev, tag)
+    return lp
 
 
 def check_contiguous_launches(launches, st, L, gemms_per_forward, forwards,
@@ -1026,7 +1116,7 @@ def main(argv=None) -> int:
                "mx_quantize": "standalone", "t3_quantize": "standalone",
                "mx_gemm": "standalone"}
     for e in entries:
-        path = path_of[e["name"]]
+        path = e.get("path", path_of[e["name"]])
         e.update(route="cuda", source=SOURCE[e["name"]],
                  replaces=TPU_KERNEL[e["name"]], path=path,
                  launches=launches[path][e["name"]])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the paged MX flash-prefill's device time goes, on one GPU.
 
-    python3 scripts/prefill_passes.py
+    python3 scripts/prefill_passes.py [--heads qwen2-0.5b|qwen2-7b]
 
 Builds ``src/repro_torch/kernels/csrc/mx_prefill.cu`` as it is and with the
 attention's parts left out (``-DMXPREFILL_LEAVE_OUT``, see the source: the
@@ -11,11 +11,14 @@ into the git-ignored ``build/prefill_passes/``, and times the attention
 (``flash_prefill_kernel``, apart from the chunk encodes) by device time
 (``chip_smoke.device_split``) at ``chip_smoke.py``'s timed shape, B = 4
 lanes of a 1024-row mxfp8 chunk at q_start = [0, 1024, 0, 0], on 1024-row
-and on 64-row pages. A variant's output is wrong by design; only its time
-is read. The last line is a JSON object with every time.
+and on 64-row pages, with the heads of Qwen2-0.5B (14 over 2 KV heads of
+64, the default) or of Qwen2-7B (28 over 4 KV heads of 128). A variant's
+output is wrong by design; only its time is read. The last line is a JSON
+object with every time.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import pathlib
@@ -37,6 +40,7 @@ VARIANTS = {"full": 0, "no loads": 1, "no loads, no decode": 3,
             "pipeline only": 15, "pipeline only, no fence": 47,
             "pipeline only, no rank": 79, "no rank": 64}
 PAGES = ((1024, 2), (64, 32))
+HEADS = {"qwen2-0.5b": (14, 2, 64), "qwen2-7b": (28, 4, 128)}  # H, kvh, Dh
 
 
 def build_variants(build) -> dict:
@@ -64,7 +68,11 @@ def build_variants(build) -> dict:
     return fns
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--heads", choices=sorted(HEADS), default="qwen2-0.5b",
+                    help="the query and KV heads of the timed shape")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("prefill_passes.py: no CUDA device", file=sys.stderr)
@@ -78,7 +86,8 @@ def main() -> int:
     fns = build_variants(build)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, C, H, kvh, Dh = 4, 1024, 14, 2, 64
+    B, C = 4, 1024
+    H, kvh, Dh = HEADS[args.heads]
     D, starts = kvh * Dh, [0, 1024, 0, 0]
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     kl = st + C
@@ -95,7 +104,8 @@ def main() -> int:
         pool = cs._paged_pool(torch, dev, gen, n_pages, P, D, "mxfp8")
         bt = cs._tables(torch, dev, gen, B, maxp, n_pages,
                         [s + C for s in starts], P)
-        label = f"B={B} C={C} q_start={starts} P={P} mxfp8"
+        label = (f"B={B} C={C} H={H} kvh={kvh} Dh={Dh} q_start={starts} "
+                 f"P={P} mxfp8")
         times[label] = {}
         for name, fn in fns.items():
             def call(fn=fn, name=name):

@@ -1,13 +1,15 @@
 """Architecture config registry: ``get(name)`` / ``get_reduced(name)``.
 
-The port carries the configs of the slices it serves (Qwen2-0.5B)."""
+The port carries the configs of the slices it serves (Qwen2-0.5B,
+Qwen2-7B)."""
 from __future__ import annotations
 
 import importlib
 
 from .base import ArchConfig  # noqa
 
-_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "qwen2-0-5b": "qwen2_0_5b"}
+_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "qwen2-0-5b": "qwen2_0_5b",
+            "qwen2-7b": "qwen2_7b"}
 
 
 def canonical(name: str) -> str:

@@ -2,8 +2,11 @@
 //
 // Ports the Pallas tile helpers of the JAX package:
 //   * the quantize snap of ``_quant_tile`` (src/repro/kernels/mx_quant.py:47-59)
-//     and the T3 rotation of ``_rotate_tile`` (hadamard_quant.py:25), as one
-//     per-32-block encode (``mx_encode_block``) that every kernel calls,
+//     and the T3 rotation of ``_rotate_tile`` (hadamard_quant.py:25): the
+//     steps every kernel's encode takes (``block_scale_exp``, ``quant_code``,
+//     ``snap_index``), and the encode of a 32-block spread over 8 lanes
+//     (``mx_encode_quad``) that the standalone quantizers and the prefill's
+//     chunk encode share,
 //   * the code decodes (``_decode_tile``, mx_quant.py:34, and the arithmetic
 //     fp8 / int8 decode of ``_decode_codes``, mx_attention.py:80-105),
 //   * the E8M0 scale-byte conversions (packing.py:67-74).
@@ -154,22 +157,64 @@ __device__ __forceinline__ void rotate_h32(float (&v)[E], int lane) {
   for (int i = 0; i < E; ++i) v[i] = (float)(d[i] * h);
 }
 
-// Encode one 32-block in place of the Pallas tile bodies: with ``t3`` the
-// block is first rotated by the Sylvester-ordered Hadamard H32
-// (``rotate_h32``). Then amax, the block exponent and the snap. On return
-// ``v`` holds the (rotated) block, ``code`` its symmetric codes; returns the
-// scale exponent.
+// The snap's table: mids[k] = (grid_value(k) + grid_value(k + 1)) * 0.5f,
+// the midpoints ``snap_index`` compares |z| with, then NaN up to 128
+// entries (no |z| is at or above a NaN, so a search that reads past the last
+// midpoint stops there). Threads tid, tid + nth, ... of a block fill it; a
+// barrier must follow.
 template <bool kFp6 = false>
-__device__ __forceinline__ int mx_encode_block(int fmt, float (&v)[32],
-                                               bool t3, int (&code)[32]) {
-  if (t3) rotate_h32<32>(v, 0);
-  float amax = 0.0f;
+__device__ __forceinline__ void fill_snap_mids(float* mids, int fmt, int tid,
+                                               int nth) {
+  const int ngrid = fmt_ngrid<kFp6>(fmt);
+  for (int k = tid; k < 128; k += nth)
+    mids[k] = k < ngrid - 1 ? (grid_value<kFp6>(fmt, k) +
+                               grid_value<kFp6>(fmt, k + 1)) * 0.5f
+                            : __int_as_float(0x7fc00000);
+}
+
+// Encode one 32-block held four elements a lane by 8 lanes (lane l: block
+// elements 4 (l % 8) .. + 3 in v; every lane of the warp calls it): the
+// block's max magnitude by shuffles, ``block_scale_exp``, then per element
+// ``quant_code``'s quotient and ``snap_index``'s count of the midpoints at
+// or below |z|, here by binary lifting over ``mids`` (``fill_snap_mids``):
+// a fixed number of steps for the format, no branch. The quotient x / 2^sexp
+// is the product with 2^-sexp where that is a normal float (the same real
+// number, rounded once: the same float). Returns the scale exponent; the
+// symmetric codes in ``code``. The standalone quantizers and the prefill's
+// chunk encode call it, so one definition decides their snaps.
+template <bool kFp6 = false>
+__device__ __forceinline__ int mx_encode_quad(int fmt, const float (&v)[4],
+                                              const float* mids,
+                                              uint32_t (&code)[4]) {
+  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                     fmaxf(fabsf(v[2]), fabsf(v[3])));
 #pragma unroll
-  for (int i = 0; i < 32; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  for (int o = 1; o < 8; o <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   const int sexp = block_scale_exp(fmt, amax);
-  const float scale = ldexpf(1.0f, sexp);
+  float z[4];
+  if (sexp >= -127 && sexp <= 126) {
+    const float inv = __int_as_float((127 - sexp) << 23);   // 2^-sexp
 #pragma unroll
-  for (int i = 0; i < 32; ++i) code[i] = quant_code<kFp6>(fmt, v[i], scale);
+    for (int i = 0; i < 4; ++i) z[i] = v[i] * inv;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) z[i] = __fdiv_rn(v[i], ldexpf(1.0f, sexp));
+  }
+  // half the power of two at or above the grid's size: 4, 16 or 64
+  const int top = fmt_ngrid<kFp6>(fmt) > 32 ? 64
+                                            : (fmt_ngrid<kFp6>(fmt) > 8 ? 16
+                                                                        : 4);
+  // the four searches step by step, so their table reads overlap
+  int idx[4] = {0, 0, 0, 0};
+  for (int step = top; step; step >>= 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      idx[i] += mids[idx[i] + step - 1] <= fabsf(z[i]) ? step : 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    code[i] = (uint32_t)(fmt_center<kFp6>(fmt) +
+                         (z[i] < 0.0f ? -idx[i] : idx[i]));
   return sexp;
 }
 

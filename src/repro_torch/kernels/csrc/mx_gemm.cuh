@@ -118,7 +118,7 @@ constexpr int QBLOCKS = 1056;  // at most 8 blocks on each of 132 SMs
 
 // Q_mx of R rows of a 32-block held E elements a lane by 32 / E lanes
 // (``rotate_h32``'s layout), encoded and decoded in place:
-// ``mx_encode_block``'s steps (mx_common.cuh) — the max magnitude across
+// ``mx_encode_quad``'s steps (mx_common.cuh) — the max magnitude across
 // the lanes, ``block_scale_exp``, ``quant_code``'s quotient and snap,
 // ``decode_code`` times the scale. For a 4-bit format (``four``) the snap is
 // ``snap_index``'s count of the midpoints at or below |z|, a 3-step search

@@ -25,35 +25,42 @@
 // chunk row.
 //
 // Pass 2 (``flash_prefill_kernel``): a block owns one (lane, KV head) and
-// 128 rows r = (i - i0) G + g of (query position i, head g of the KV head's
-// G): one decoded K/V tile serves every head of 128 / G positions (18 for
-// Qwen2-0.5B's G = 7). Its keys: the committed prefix through the block
-// table (pool rows valid iff kp < q_start, so a mid-page resume never
-// counts a row twice), then the chunk rows pass 1 wrote (row i at q_start +
-// i) — attention reads the round trip of exactly the bytes the pool
-// receives — in tiles of 128 keys aligned to 128, from the window's first
-// key to the block's last position (wholly masked tiles are never
-// visited). Every block ranks the (lane, query tile) items by their tiles
-// from q_start and kv_len, and the items start most work first.
+// up to ROWS consecutive rows r = i G + g of the lane's (query position i,
+// head g of the KV head's G) — ROWS is 128 for heads up to 64 wide, 64 for
+// heads up to 128 — whole positions where G <= ROWS, else ROWS rows of a
+// position's heads: one decoded K/V tile serves every head of ROWS / G
+// positions (18 for Qwen2-0.5B's G = 7, 9 for Qwen2-7B's). Its keys: the
+// committed prefix through the block table (pool rows valid iff kp <
+// q_start, so a mid-page resume never counts a row twice), then the chunk
+// rows pass 1 wrote (row i at q_start + i) — attention reads the round trip
+// of exactly the bytes the pool receives — in stages of TS keys aligned to
+// TS (128 keys for heads up to 64 wide, 64 for wider ones), from the
+// window's first key to the block's last position (wholly masked stages
+// are never visited). With heads up to 64 wide every block ranks the
+// (lane, row tile) items by their stages from q_start and kv_len, and the
+// items start most work first; with wider heads they start in order of
+// row tiles.
 //
-//   * Warps 8-11, the decoder warpgroup: thread 0 keeps a ring of four raw
-//     stages filled by TMA (the head's code bytes of 128 key rows, boxes
-//     of gcd(P, 64) rows from the pages the block table names — kept in
-//     shared memory — or from the chunk's bytes; the rows' E8M0 bytes as
+//   * Warps NCW .. NCW + 3, the decoder warpgroup: thread 0 keeps a ring of
+//     four raw stages filled by TMA (the head's code bytes of TS key rows,
+//     boxes of gcd(P, 64) rows from the pages the block table names — kept
+//     in shared memory — or from the chunk's bytes; the rows' E8M0 bytes as
 //     1D boxes), each ordered by a transaction-count mbarrier. Every
-//     thread decodes its share of each tile once, through a 256-entry
+//     thread decodes its share of each stage once, through a 256-entry
 //     table, into bf16 in a ring of two stages, in the layout wgmma reads
-//     (K as 64-key rows of Dh, V transposed as Dh rows of 64 keys; 128-byte
-//     rows, 128-byte swizzle); rows past the tile's last valid key decode to
-//     0. No decoder thread has a global load in flight at its proxy fence,
-//     which waits for all of them.
-//   * Warps 0-7, two consumer warpgroups of 64 rows, per 64-key half of a
-//     stage: S = Q K^T by ``wgmma`` m64n64k16 with Q from shared memory,
-//     the online softmax on the accumulator fragment in registers (row max
-//     and sum by quad shuffles, masked scores at -inf and probabilities at
-//     0, the causal, fill and window masks per element only on halves that
-//     cross a bound), then O += P V by ``wgmma`` with P from registers (the
-//     S fragment re-packed as the A operand), V from the ring. A half
+//     (K as 64-key rows of each 64-feature panel of the head, V transposed
+//     as feature rows of 64 keys; 128-byte rows, 128-byte swizzle); rows
+//     past the stage's last valid key decode to 0. No decoder thread has a
+//     global load in flight at its proxy fence, which waits for all of them.
+//   * Warps 0 .. NCW - 1, consumer warpgroups of 64 rows (two for heads up
+//     to 64 wide, one for wider heads: its O accumulator has 64 registers a
+//     thread), per 64 keys: S = Q K^T by ``wgmma`` m64n64k16 with Q from
+//     shared memory (4 k16 steps per 64-feature panel), the online softmax
+//     on the accumulator fragment in registers (row max and sum by quad
+//     shuffles, masked scores at -inf and probabilities at 0, the causal,
+//     fill and window masks per element only on tiles that cross a bound),
+//     then O += P V by ``wgmma`` m64n{64,128}k16 with P from registers (the
+//     S fragment re-packed as the A operand), V from the ring. A tile
 //     wholly masked for a warpgroup's rows is skipped by it (an exact no-op
 //     of the online softmax). O / max(l, 1e-30) goes out from registers.
 //
@@ -67,8 +74,18 @@
 // leave ~2^-17 of each element). The score scale 1/sqrt(Dh) multiplies S in
 // f32, as in the plain version.
 //
-// Shapes: Dh a multiple of 16 up to 64 (a 128-byte operand row; a narrower
-// head's columns are zero), G <= 128, P a multiple of 16.
+// Shapes: Dh a multiple of 16 up to 128 (one or two 128-byte operand
+// panels; a narrower head's columns are zero), G <= 128, P a multiple of
+// 16. The kernel is instantiated per code width and per head width (up to
+// 64, up to 128), so the narrow heads' build pays nothing for the wide.
+// Why 64 rows a block for wide heads: two consumer warpgroups of 64 rows
+// each would need 64 O registers a thread beside S and the split P, more
+// than the 168 a thread that 384 threads leave, and Q's three terms and two
+// 128-key decoded stages would fill shared memory. One consumer warpgroup
+// (256 threads, up to 255 registers each) with 64-key stages keeps the
+// narrow layout's shared memory; each decoded stage then serves 64 rows,
+// not 128. (The other known fit, 128 rows with the decoder's registers
+// handed to the consumers by ``setmaxnreg``, is untried.)
 #include "mx_gemm.cuh"
 
 namespace {
@@ -88,14 +105,26 @@ using mxgemm::wgmma_fence;
 using mxgemm::wgmma_wait0;
 
 constexpr int TK = 64;                   // keys per wgmma operand tile
-constexpr int TS = 2 * TK;               // keys per ring stage (a tile)
-constexpr int ROWS = 128;                // (position, head) rows per block
-constexpr int NCW = 8;                   // consumer warps: two warpgroups
-constexpr int NTH = 32 * (NCW + 4);      // + the decoder warpgroup
 constexpr int RING = 2;                  // decoded K/V stages
 constexpr int OP_BYTES = 64 * 128;       // a bf16 operand tile: 64 x 128 B
-constexpr int MAX_ITEMS = 512;           // (lane, query tile) items ranked
+constexpr int MAX_ITEMS = 512;           // (lane, row tile) items ranked
 constexpr int PGCAP = 1024;              // page ids a block keeps in smem
+
+// The tiling of the instantiation for heads up to kDh (64 or 128) wide.
+// Either way a decoded stage is four operand tiles (K and V, NH 64-key
+// tiles of NP 64-feature panels) and Q three terms of NP panels for each
+// consumer warpgroup: six tiles.
+template <int kDh>
+struct Tiling {
+  static constexpr int NP = kDh / 64;              // 64-feature panels
+  static constexpr int NCW = kDh == 64 ? 8 : 4;    // consumer warps
+  static constexpr int NTH = 32 * (NCW + 4);       // + the decoder warpgroup
+  static constexpr int ROWS = 16 * NCW;            // (position, head) rows
+  static constexpr int NH = 2 / NP;                // 64-key tiles a stage
+  static constexpr int TS = TK * NH;               // keys a stage
+  static constexpr int NO = 32 * NP;               // O registers a thread
+  static_assert(kDh == 64 || kDh == 128, "heads up to 64 or 128 wide");
+};
 constexpr float NEG_INF = -1e30f;
 
 // For timing the kernel's parts (scripts/prefill_passes.py): built with
@@ -114,21 +143,15 @@ constexpr size_t SMEM_BYTES = 1024 + (size_t)(6 + 4 * RING) * OP_BYTES +
 // Pass 1: x (nblk 32-blocks of f32) -> codes + E8M0 bytes, ``kv_encode``'s
 // bytes. A warp takes four 32-blocks at a time: lane l loads (16 bytes)
 // elements 4 (l % 8) .. + 3 of block l / 8, so a block lies on 8 lanes and
-// a warp's loads are 512 contiguous bytes; the block's amax by shuffles,
-// then ``mx_encode_block``'s steps per element: ``block_scale_exp``, and
-// ``quant_code``'s quotient and ``snap_index``'s search over the grid
-// midpoints, read from a table in shared memory built from the same
-// expression (mx_common.cuh), so the bytes are the same.
+// a warp's loads are 512 contiguous bytes; mx_common.cuh's
+// ``mx_encode_quad`` (the standalone quantizers' encode) gives the codes
+// and the scale exponent, so the bytes are the same.
 constexpr int QWARPS = 8;        // warps per block of the encode
 __global__ void __launch_bounds__(32 * QWARPS)
 kv_quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
                 uint8_t* __restrict__ scales, long long nblk, int fmt) {
   __shared__ float mids[128];
-  const int ngrid = fmt_ngrid(fmt);
-  for (int k = threadIdx.x; k < 128; k += blockDim.x)
-    mids[k] = k < ngrid - 1
-                  ? (grid_value(fmt, k) + grid_value(fmt, k + 1)) * 0.5f
-                  : INFINITY;
+  fill_snap_mids(mids, fmt, threadIdx.x, blockDim.x);
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const long long blk =
@@ -137,25 +160,9 @@ kv_quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ codes,
   float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (blk < nblk) f = __ldg(reinterpret_cast<const float4*>(x + blk * 32 + e));
   const float v[4] = {f.x, f.y, f.z, f.w};
-  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
-                     fmaxf(fabsf(v[2]), fabsf(v[3])));
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (blk >= nblk) return;
-  const int sexp = block_scale_exp(fmt, amax);
-  const float scale = ldexpf(1.0f, sexp);
   uint32_t c[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float z = __fdiv_rn(v[i], scale), mag = fabsf(z);
-    int lo = 0, hi = ngrid - 1;       // snap_index: midpoints <= |z|
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (mids[mid] <= mag) lo = mid + 1; else hi = mid;
-    }
-    c[i] = (uint32_t)(fmt_center(fmt) + (z < 0.0f ? -lo : lo));
-  }
+  const int sexp = mx_encode_quad(fmt, v, mids, c);
+  if (blk >= nblk) return;
   if (lane % 8 == 0) scales[blk] = e8m0_byte(sexp);
   if (fmt_bits(fmt) == 8) {
     *reinterpret_cast<uint32_t*>(codes + blk * 32 + e) =
@@ -204,6 +211,36 @@ __device__ __forceinline__ void wgmma64_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 16, bf16 from registers as above) B (16 x
+// 128, shared memory): the P V product over V^T's two 64-feature panels.
+__device__ __forceinline__ void wgmma128_rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -259,11 +296,12 @@ __device__ __forceinline__ uint32_t mul_bits(__nv_bfloat162 v,
   return bf2_bits(__hmul2(v, s));
 }
 
-// A block's key tiles: the prefix's, then the chunk's; each source's keys
-// [t0, hi) in tiles of TS from t0 (a multiple of TS).
+// A block's key stages: the prefix's, then the chunk's; each source's keys
+// [t0, hi) in stages of TS from t0 (a multiple of TS).
+template <int TS>
 struct Plan {
-  int npt, pt0, phi;     // prefix: tiles, first key, end (key = position)
-  int nct, ct0, chi;     // chunk: tiles, first row, end (row i at q_start + i)
+  int npt, pt0, phi;     // prefix: stages, first key, end (key = position)
+  int nct, ct0, chi;     // chunk: stages, first row, end (row i at q_start + i)
   // the keys of query rows i0 .. i1 - 1 of a lane at q_start st, kv_len kl:
   // the window's first key to the last row's position
   __device__ Plan(int st, int kl, int i0, int i1, int C, int window,
@@ -288,9 +326,17 @@ struct Plan {
   }
 };
 
-// One 64-key half's bytes for one decoder thread: K rows (w >> 3) + 16 j,
-// features 8 (w & 7) .. + 7; V rows 8 (w >> 4) .. + 7, features 4 (w & 15)
-// .. + 3.
+// The query positions [i0, i1) of the block's rows [rb, rb + R) (row r of
+// the lane: position r / G, head r % G).
+__device__ __forceinline__ void row_span(int rb, int R, int G, int& i0,
+                                         int& i1) {
+  i0 = rb / G;
+  i1 = (rb + R - 1) / G + 1;
+}
+
+// One 64-key tile's bytes of one 64-feature panel for one decoder thread:
+// K rows (w >> 3) + 16 j, features 8 (w & 7) .. + 7; V rows 8 (w >> 4) ..
+// + 7, features 4 (w & 15) .. + 3 (of the panel).
 struct Raw {
   uint32_t k[4][2];   // 8 codes (8-bit) or 8 nibbles in k[j][0]
   uint32_t v[8];      // 4 codes (8-bit) or 4 nibbles in the low half
@@ -316,29 +362,45 @@ struct Maps {
   CUtensorMap kc[2], vc[2], ks[2], vs[2];   // [0] the pools, [1] the chunk
 };
 
-// How a tile's bytes land in a raw stage: K codes, V codes (128 rows of CB
+// How a stage's bytes land in a raw stage: K codes, V codes (TS rows of CB
 // bytes each: the head's bytes where they are a multiple of 16, else whole
 // rows), then the K and V scales, each box of SR rows in a 128-byte slot of
-// SP bytes. A tile takes 128 / BH code boxes per operand, BH = gcd(P, 64).
+// SP bytes. A stage takes TS / BH code boxes per operand, BH = gcd(P, 64).
 struct Geo {
   int CB, BH, SR, SP, RB, RAWST;
   bool per_head;      // CB holds only the head's bytes
 };
 
-template <int kBits>
-__global__ void __launch_bounds__(NTH, 1)
+// O (64 x 64 NP f32) += P V for one k16 step: m64n64k16, or m64n128k16 over
+// the two panels of V^T (128 feature rows, contiguous).
+template <int NP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[32 * NP],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (NP == 1) wgmma64_rs(d, a, db); else wgmma128_rs(d, a, db);
+}
+
+// RPB: rows of a block (a multiple of G where G <= ROWS: whole positions);
+// nrt: row tiles of a lane.
+template <int kBits, int kDh>
+__global__ void __launch_bounds__(Tiling<kDh>::NTH, 1)
 flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
                      const float* __restrict__ q,
                      const int* __restrict__ tables,
                      const int* __restrict__ q_start,
                      const int* __restrict__ kv_len, float* __restrict__ out,
                      int B, int C, int H, int Dh, int D, int P, int maxp,
-                     int fmt, int window, int QT, int nqt) {
+                     int fmt, int window, int RPB, int nrt) {
+  using T = Tiling<kDh>;
+  constexpr int NP = T::NP, NCW = T::NCW, NTH = T::NTH, NH = T::NH;
+  constexpr int TS = T::TS, NO = T::NO;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* Qs = base;                          // [2 warpgroups][3 terms][OP]
-  // [RING][K half 0, K half 1, V half 0, V half 1][OP]: K as key rows, V as
-  // feature rows, 64 keys each
+  // [consumer warpgroups][3 terms][NP panels][OP]
+  uint8_t* Qs = base;
+  // [RING][K tiles, V tiles][OP]: the NH x NP K tiles (64-key rows of a
+  // 64-feature panel; tile h NP + p) then the V tiles (V^T: panel p's 64
+  // feature rows of tile h's 64 keys)
   uint8_t* ring = Qs + 6 * OP_BYTES;
   uint8_t* raw = ring + RING * 4 * OP_BYTES;   // [RAWST][RB]: TMA's bytes
   uint32_t* tab = reinterpret_cast<uint32_t*>(raw + geo.RAWST * geo.RB);
@@ -351,21 +413,27 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
   const int kvh = D / Dh, G = H / kvh;
   constexpr int bits = kBits;
   const int ns = D / 32;
+  const int CG = C * G;                        // rows of a lane
 
-  // The block's (lane, query tile) item: the kvh blocks of an item are
-  // consecutive, and the items go in order of their key tiles, most first
-  // (ties: the later query tile, then the lower lane), which every block
-  // ranks alike from q_start and kv_len; past MAX_ITEMS items, in order of
-  // query tiles alone. Scratch: the ring, before the decoder writes it.
-  const int items = B * nqt, rank = blockIdx.x / kvh, hk = blockIdx.x % kvh;
-  int item = rank;                            // item (nqt - 1 - qt) B + b
-  if (items <= MAX_ITEMS && !(LEAVE_OUT & 64)) {
+  // The block's (lane, row tile) item: the kvh blocks of an item are
+  // consecutive, and the items go in order of their key stages, most first
+  // (ties: the later row tile, then the lower lane), which every block
+  // ranks alike from q_start and kv_len; past MAX_ITEMS items, and for
+  // heads over 64 wide, in order of row tiles alone (there every block
+  // ranks twice the items with two thirds of the threads, and the ranking
+  // cost more than the order saved: PERF.md). Scratch: the ring, before
+  // the decoder writes it.
+  const int items = B * nrt, rank = blockIdx.x / kvh, hk = blockIdx.x % kvh;
+  int item = rank;                            // item (nrt - 1 - rt) B + b
+  if (kDh == 64 && items <= MAX_ITEMS && !(LEAVE_OUT & 64)) {
     int* work = reinterpret_cast<int*>(ring);
     int* pick = work + MAX_ITEMS;
     for (int i = tid; i < items; i += NTH) {
-      const int bi = i % B, a = (nqt - 1 - i / B) * QT;
-      work[i] = Plan(q_start[bi], kv_len[bi], a, min(a + QT, C), C, window,
-                     maxp * P).n();
+      const int bi = i % B, a = (nrt - 1 - i / B) * RPB;
+      int a0, a1;
+      row_span(a, min(RPB, CG - a), G, a0, a1);
+      work[i] = Plan<TS>(q_start[bi], kv_len[bi], a0, a1, C, window,
+                         maxp * P).n();
     }
     __syncthreads();
     for (int i = tid; i < items; i += NTH) {
@@ -381,11 +449,12 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
     __syncthreads();
     item = *pick;
   }
-  const int b = item % B, qt = nqt - 1 - item / B;
-  const int i0 = qt * QT, i1 = min(i0 + QT, C);
-  const int R = (i1 - i0) * G;
+  const int b = item % B, rt = nrt - 1 - item / B;
+  const int rb = rt * RPB, R = min(RPB, CG - rb);   // the block's lane rows
+  int i0, i1;
+  row_span(rb, R, G, i0, i1);
   const int st = q_start[b], kl = kv_len[b];
-  const Plan pl(st, kl, i0, i1, C, window, maxp * P);
+  const Plan<TS> pl(st, kl, i0, i1, C, window, maxp * P);
   const int ntiles = pl.n();
 
   // decode table: 8-bit formats, code -> bf16 value; 4-bit formats, byte ->
@@ -407,22 +476,20 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 
   if (warp >= NCW) {
     // ---------------- decoder warpgroup ----------------
-    // Thread 0 keeps the raw ring full: the TMA boxes of tile t + RAWST go
-    // out once every decoder thread has read tile t's stage. Every thread
-    // decodes its share of each tile from shared memory; no decoder thread
+    // Thread 0 keeps the raw ring full: the TMA boxes of stage t + RAWST go
+    // out once every decoder thread has read stage t's. Every thread
+    // decodes its share of each stage from shared memory; no decoder thread
     // has a global load in flight at its proxy fence (which waits for all
     // of them).
     const int w = tid - 32 * NCW;
     const int c8 = w & 7, grp = w >> 3;        // K: feature chunk, key rows
     const int vk8 = w >> 4, vf4 = w & 15;      // V: key chunk, features
-    const bool kcol = 8 * c8 < Dh, vcol = 4 * vf4 < Dh;
     const int hb = Dh * bits / 8;              // the head's bytes in a row
     const int cin = geo.per_head ? 0 : hk * hb;
-    const int ksi = (hk * Dh + 8 * c8) >> 5, vsi = (hk * Dh + 4 * vf4) >> 5;
     const int CB = geo.CB, BH = geo.BH, SR = geo.SR, SP = geo.SP;
-    const int nbox = TS / BH;                  // code boxes a tile
+    const int nbox = TS / BH;                  // code boxes a stage
     const int npc = BH / SR;                   // scale boxes a code box
-    const int sreg = nbox * npc * SP;          // a tile's scale bytes, slotted
+    const int sreg = nbox * npc * SP;          // a stage's scale bytes
     const int srs = __ffs(SR) - 1;             // SR = 2^srs
     // the page ids of the block's prefix keys, from shared memory where
     // they fit (else from the table), so thread 0 has no global load in
@@ -464,16 +531,19 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
         }
       }
     };
-    // this thread's bytes of half h (keys 64 h ..) of tile t, from raw
-    // stage ``rs``
-    auto fetch = [&](int t, int h, const uint8_t* rs, Raw& r) {
+    // this thread's bytes of tile h (keys 64 h ..), panel pn (features
+    // 64 pn ..) of stage t, from raw stage ``rs``
+    auto fetch = [&](int t, int h, int pn, const uint8_t* rs, Raw& r) {
       int src, k0, hi;
       pl.at(t, src, k0, hi);
       const uint8_t* kc = rs;
       const uint8_t* vc = rs + TS * CB;
       const uint8_t* kss = rs + 2 * TS * CB;
       const uint8_t* vss = kss + sreg;
-      // scale bytes of tile row ``row``: its box's slot, the box's offset
+      const int f0 = hk * Dh + 64 * pn;        // the panel's first feature
+      const int ksi = (f0 + 8 * c8) >> 5, vsi = (f0 + 4 * vf4) >> 5;
+      const int cp = cin + 64 * pn * bits / 8;  // the panel's first byte
+      // scale bytes of stage row ``row``: its box's slot, the box's offset
       // from 16 bytes (chunk rows b C + k need not start on 16), the row
       auto srow = [&](int row) {
         const int pc = row >> srs;
@@ -483,7 +553,7 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = TK * h + grp + 16 * j;
-        const uint8_t* p = kc + row * CB + cin;
+        const uint8_t* p = kc + row * CB + cp;
         if constexpr (bits == 8) {
           const uint2 u = *reinterpret_cast<const uint2*>(p + 8 * c8);
           r.k[j][0] = u.x;
@@ -497,14 +567,15 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int row = TK * h + 8 * vk8 + i;
-        const uint8_t* p = vc + row * CB + cin;
+        const uint8_t* p = vc + row * CB + cp;
         r.v[i] = bits == 8
             ? *reinterpret_cast<const uint32_t*>(p + 4 * vf4)
             : (uint32_t)*reinterpret_cast<const unsigned short*>(p + 2 * vf4);
         r.vs[i] = k0 + row < hi ? vss[srow(row) + vsi] : NO_ROW;
       }
     };
-    auto decode = [&](const Raw& raw, uint8_t* Kd, uint8_t* Vd) {
+    auto decode = [&](const Raw& raw, int pn, uint8_t* Kd, uint8_t* Vd) {
+      const bool kcol = 64 * pn + 8 * c8 < Dh, vcol = 64 * pn + 4 * vf4 < Dh;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t sb = scale_bits(raw.ks[j]);
@@ -563,11 +634,14 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
       if (t >= RING) mbar_wait(&empty[s], ((t / RING) - 1) & 1);
       if constexpr (!(LEAVE_OUT & 2)) {
         uint8_t* st4 = ring + s * 4 * OP_BYTES;
-        for (int h = 0; h < 2 && k0 + TK * h < hi; ++h) {
-          Raw r;
-          fetch(t, h, raw + rs * geo.RB, r);
-          decode(r, st4 + h * OP_BYTES, st4 + (2 + h) * OP_BYTES);
-        }
+        for (int h = 0; h < NH && k0 + TK * h < hi; ++h)
+#pragma unroll
+          for (int pn = 0; pn < NP; ++pn) {
+            Raw r;
+            fetch(t, h, pn, raw + rs * geo.RB, r);
+            decode(r, pn, st4 + (h * NP + pn) * OP_BYTES,
+                   st4 + (2 + h * NP + pn) * OP_BYTES);
+          }
       }
       // the stores above before wgmma reads them, and the reads of the raw
       // stage before TMA writes it again
@@ -582,52 +656,58 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 
   // ---------------- consumer warpgroups ----------------
   const int g = warp / 4, t128 = tid % 128;
-  uint8_t* Qg = Qs + g * 3 * OP_BYTES;
+  uint8_t* Qg = Qs + g * 3 * NP * OP_BYTES;
   {
-    // rows 64 g + (t128 >> 3) + 16 j, features 8 (t128 & 7) .. + 7: the
-    // three bf16 terms of each, into their swizzled operand tiles
+    // rows 64 g + (t128 >> 3) + 16 j, features 64 pn + 8 (t128 & 7) .. + 7:
+    // the three bf16 terms of each, into their swizzled operand tiles
     const int c8 = t128 & 7;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rl = (t128 >> 3) + 16 * j, r = 64 * g + rl;
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (r < R && 8 * c8 < Dh) {
-        const int i = i0 + r / G, h = hk * G + r % G;
-        const float4* p = reinterpret_cast<const float4*>(
-            q + (((size_t)b * C + i) * H + h) * Dh + 8 * c8);
-        const float4 a0 = __ldg(p), a1 = __ldg(p + 1);
-        v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
-        v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
-      }
-      uint32_t hi[4], mid[4], lo[4];
+    for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        split3(v[2 * i], v[2 * i + 1], hi[i], mid[i], lo[i]);
-      const int off = swz(rl, c8);
-      *reinterpret_cast<uint4*>(Qg + off) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(Qg + OP_BYTES + off) =
-          make_uint4(mid[0], mid[1], mid[2], mid[3]);
-      *reinterpret_cast<uint4*>(Qg + 2 * OP_BYTES + off) =
-          make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
+      for (int j = 0; j < 4; ++j) {
+        const int rl = (t128 >> 3) + 16 * j, r = 64 * g + rl;
+        const int f = 64 * pn + 8 * c8;
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (r < R && f < Dh) {
+          const int i = (rb + r) / G, h = hk * G + (rb + r) % G;
+          const float4* p = reinterpret_cast<const float4*>(
+              q + (((size_t)b * C + i) * H + h) * Dh + f);
+          const float4 a0 = __ldg(p), a1 = __ldg(p + 1);
+          v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
+          v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
+        }
+        uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split3(v[2 * i], v[2 * i + 1], hi[i], mid[i], lo[i]);
+        const int off = swz(rl, c8);
+        uint8_t* Qp = Qg + pn * OP_BYTES;
+        *reinterpret_cast<uint4*>(Qp + off) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(Qp + NP * OP_BYTES + off) =
+            make_uint4(mid[0], mid[1], mid[2], mid[3]);
+        *reinterpret_cast<uint4*>(Qp + 2 * NP * OP_BYTES + off) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
     fence_proxy_async();
     bar_sync(1 + g, 128);
   }
 
-  // this thread's fragment rows ra, rb = ra + 8 and their query positions;
+  // this thread's fragment rows ra, rb8 = ra + 8 and their query positions;
   // the warpgroup's first and last position
-  const int ra = 64 * g + 16 * (warp % 4) + lane / 4, rb = ra + 8;
-  const int qpa = st + i0 + ra / G, qpb = st + i0 + rb / G;
+  const int ra = 64 * g + 16 * (warp % 4) + lane / 4, rb8 = ra + 8;
+  const int qpa = st + (rb + ra) / G, qpb = st + (rb + rb8) / G;
   const bool has_rows = 64 * g < R;
-  const int qmin = st + i0 + (64 * g) / G;
-  const int qmax = st + i0 + (min(64 * g + 63, R - 1)) / G;
+  const int qmin = st + (rb + 64 * g) / G;
+  const int qmax = st + (rb + min(64 * g + 63, R - 1)) / G;
   const float sm = 1.0f / sqrtf((float)Dh);
   const uint32_t qa = smem_u32(Qg);
 
-  float o[32], s[32];
+  float o[NO], s[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.0f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
   float ma = NEG_INF, mb = NEG_INF, la = 0.0f, lb = 0.0f;
 
   for (int t = 0; t < ntiles; ++t) {
@@ -636,7 +716,7 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
     pl.at(t, src, k0t, hi);
     const int kb = src ? st : 0;               // position of key k: kb + k
     mbar_wait(&full[slot], (t / RING) & 1);
-    for (int hf = 0; hf < 2; ++hf) {           // the stage's two 64-key halves
+    for (int hf = 0; hf < NH; ++hf) {          // the stage's 64-key tiles
       const int k0 = k0t + TK * hf;
       if (k0 >= hi) break;
       const int kpf = kb + k0, kpl = kb + min(k0 + TK, hi) - 1;
@@ -644,8 +724,9 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
         continue;
       const bool masked = !(k0 + TK <= hi && kpf + TK - 1 <= qmin &&
                             (window == 0 || kpf > qmax - window));
-      const uint32_t ka = smem_u32(ring + (4 * slot + hf) * OP_BYTES);
-      const uint32_t va = smem_u32(ring + (4 * slot + 2 + hf) * OP_BYTES);
+      const uint32_t ka = smem_u32(ring + (4 * slot + hf * NP) * OP_BYTES);
+      const uint32_t va =
+          smem_u32(ring + (4 * slot + 2 + hf * NP) * OP_BYTES);
       // S = (Q_hi + Q_mid + Q_lo) K^T
       fence_regs(s);
       if constexpr (!(LEAVE_OUT & 4)) {
@@ -653,9 +734,13 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 #pragma unroll
         for (int term = 0; term < 3; ++term)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma64_ss(s, desc_b128(qa + term * OP_BYTES + 32 * kk),
-                       desc_b128(ka + 32 * kk), term > 0 || kk > 0);
+          for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma64_ss(s,
+                         desc_b128(qa + (term * NP + pn) * OP_BYTES + 32 * kk),
+                         desc_b128(ka + pn * OP_BYTES + 32 * kk),
+                         term > 0 || pn > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait0();
       }
@@ -663,9 +748,9 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
 
       if constexpr (!(LEAVE_OUT & 8)) {
         // online softmax on the fragment: element 4 j + e is row (e < 2 ?
-        // ra : rb), key column c = 8 j + 2 (lane % 4) + (e & 1) of the tile.
-        // On a tile that crosses a bound, column c of a row is valid iff
-        // lo <= c < hi for the row's bounds (the source's end, causal,
+        // ra : rb8), key column c = 8 j + 2 (lane % 4) + (e & 1) of the
+        // tile. On a tile that crosses a bound, column c of a row is valid
+        // iff lo <= c < hi for the row's bounds (the source's end, causal,
         // window); a masked score is -inf, whose exp is 0.
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] *= sm;
@@ -718,7 +803,7 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
         ma = mna;
         mb = mnb;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NO / 4; ++j) {
           o[4 * j] *= ca; o[4 * j + 1] *= ca;
           o[4 * j + 2] *= cb; o[4 * j + 3] *= cb;
         }
@@ -745,7 +830,7 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
         for (int term = 0; term < 3; ++term)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
-            wgmma64_rs(o, pa[term][kk], desc_b128(va + 32 * kk));
+            wgmma_pv<NP>(o, pa[term][kk], desc_b128(va + 32 * kk));
         wgmma_commit();
         wgmma_wait0();
       }
@@ -759,17 +844,17 @@ flash_prefill_kernel(const __grid_constant__ Maps maps, const Geo geo,
     if (lane == 0) mbar_arrive(&empty[slot]);
   }
 
-  // out = O / max(l, 1e-30): element 4 j + e is row (e < 2 ? ra : rb),
+  // out = O / max(l, 1e-30): element 4 j + e is row (e < 2 ? ra : rb8),
   // feature 8 j + 2 (lane % 4) + (e & 1)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
+    const int r = half ? rb8 : ra;
     if (r >= R) continue;
     const float l = fmaxf(half ? lb : la, 1e-30f);
-    const int i = i0 + r / G, h = hk * G + r % G;
+    const int i = (rb + r) / G, h = hk * G + (rb + r) % G;
     float* dst = out + (((size_t)b * C + i) * H + h) * Dh;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NO / 4; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
       if (col < Dh)
         *reinterpret_cast<float2*>(dst + col) =
@@ -818,16 +903,19 @@ extern "C" int mx_flash_prefill_launch(
     const void* q_start, const void* kv_len, void* out, void* kc, void* ks,
     void* vc, void* vs, int B, int C, int H, int Dh, int D, int P, int maxp,
     int fmt, int window, void* stream) {
-  // shapes the tiling takes: a head fits one 128-byte bf16 operand row in
-  // k16 steps, a block holds at least one query position's G heads, pages
-  // of a multiple of 16 rows; TMA reads 16-byte aligned bytes, the loads
-  // 16-byte aligned f32 inputs
-  if (Dh <= 0 || Dh % 16 != 0 || Dh > 64 || D % Dh != 0 || D % 32 != 0 ||
+  // shapes the tiling takes: a head fits one or two 128-byte bf16 operand
+  // panels in k16 steps, at most 128 heads share a KV head, pages of a
+  // multiple of 16 rows; TMA reads 16-byte aligned bytes, the loads 16-byte
+  // aligned f32 inputs
+  if (Dh <= 0 || Dh % 16 != 0 || Dh > 128 || D % Dh != 0 || D % 32 != 0 ||
       H % (D / Dh) != 0 || P <= 0 || P % 16 != 0 || maxp <= 0)
     return (int)cudaErrorInvalidValue;
   const int kvh = D / Dh, G = H / kvh, bits = fmt_bits(fmt);
   const int db = D * bits / 8, ns = D / 32, hb = Dh * bits / 8;
-  if (G > ROWS) return (int)cudaErrorInvalidValue;
+  if (G > 128) return (int)cudaErrorInvalidValue;
+  const bool wide = Dh > 64;
+  const int TS = wide ? Tiling<128>::TS : Tiling<64>::TS;
+  const int ROWS = wide ? Tiling<128>::ROWS : Tiling<64>::ROWS;
   Geo geo;
   geo.per_head = hb % 16 == 0;
   geo.CB = geo.per_head ? hb : db;
@@ -884,16 +972,23 @@ extern "C" int mx_flash_prefill_launch(
       e = tensor_map_1d(&sm[1], chunk[1][kv], rows * ns, geo.SR * ns + 16);
   }
   if (e != cudaSuccess) return (int)e;
-  const int QT = ROWS / G, nqt = (C + QT - 1) / QT;
-  auto kernel = bits == 8 ? flash_prefill_kernel<8> : flash_prefill_kernel<4>;
+  // a block's rows: whole positions where a position's G heads fit, else
+  // ROWS consecutive (position, head) rows
+  const int RPB = G <= ROWS ? ROWS / G * G : ROWS;
+  const int nrt = (int)(((long long)C * G + RPB - 1) / RPB);
+  auto kernel = wide ? (bits == 8 ? flash_prefill_kernel<8, 128>
+                                  : flash_prefill_kernel<4, 128>)
+                     : (bits == 8 ? flash_prefill_kernel<8, 64>
+                                  : flash_prefill_kernel<4, 64>);
+  const int nth = wide ? Tiling<128>::NTH : Tiling<64>::NTH;
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem(geo.RAWST));
   if (e != cudaSuccess) return (int)e;
-  kernel<<<nqt * B * kvh, NTH, smem(geo.RAWST), s>>>(
+  kernel<<<nrt * B * kvh, nth, smem(geo.RAWST), s>>>(
       maps, geo, static_cast<const float*>(q),
       static_cast<const int*>(tables), static_cast<const int*>(q_start),
       static_cast<const int*>(kv_len), static_cast<float*>(out), B, C, H, Dh,
-      D, P, maxp, fmt, window, QT, nqt);
+      D, P, maxp, fmt, window, RPB, nrt);
   return (int)cudaGetLastError();
 }

@@ -460,7 +460,7 @@ def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
     On the card one call launches three kernels (``csrc/mx_prefill.cu``):
     ``kv_quant_kernel`` twice, encoding the chunk's K and V into the byte
     outputs, then ``flash_prefill_kernel``, the attention on the tensor
-    cores. It takes Dh a multiple of 16 up to 64, at most 128 query heads
+    cores. It takes Dh a multiple of 16 up to 128, at most 128 query heads
     per KV head and pages of a multiple of 16 rows, and raises on any other
     shape."""
     if not _flash_prefill_contract(q, k_chunk, v_chunk, k_codes, k_scales,

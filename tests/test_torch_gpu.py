@@ -84,6 +84,24 @@ def test_cuda_quantizers_byte_equal_to_plain_versions(cuda_device, fmt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t3", (False, True))
+@pytest.mark.parametrize("fmt", MX_FMTS)
+@pytest.mark.parametrize("M,K", ((1, 32), (3, 96), (7, 1056), (33, 4864)))
+def test_cuda_quantizers_odd_shapes(cuda_device, M, K, fmt, t3):
+    """Block counts the kernel's tiling does not divide: one 32-block (a
+    warp with one block), 9 (not a multiple of 4), 231 (a warp part full),
+    5016 (a part-full thread block); codes and scales byte-equal to the
+    plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _spread(g, (M, K), cuda_device)
+    kernel, plain = ((tops.t3_quantize, tref.hadamard_quant_ref) if t3
+                     else (tops.mx_quantize, tref.mx_quant_ref))
+    c, s = kernel(x, fmt)
+    cp, sp = plain(x, fmt)
+    assert torch.equal(c, cp) and torch.equal(s, sp)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("fmt", MX_FMTS)
 def test_cuda_unpacked_gemm_matches_plain_version(cuda_device, fmt):
     """mx_gemm within 1e-5 of max |y| of the plain version, with power-of-two
@@ -376,11 +394,16 @@ def test_cuda_prefill_on_64_row_pages(cuda_device, fmt, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Dh,H,kvh", ((16, 8, 2), (32, 4, 4), (64, 28, 1)))
+@pytest.mark.parametrize("Dh,H,kvh", ((16, 8, 2), (32, 4, 4), (64, 28, 1),
+                                      (80, 4, 2), (96, 12, 2), (112, 4, 2),
+                                      (128, 128, 1)))
 def test_cuda_prefill_head_shapes(cuda_device, Dh, H, kvh):
     """Heads narrower than the 64-wide operand row (Dh = 16, the reduced
     Qwen2 config's; 32), one head per KV head (G = 1, 128 positions a block)
-    and 28 (4 positions a block), on 32-row pages (two a key tile)."""
+    and 28 (4 positions a block), on 32-row pages (two a key tile); heads
+    between 64 and 128 wide (a part-filled second panel), and 128 heads of
+    128 over one KV head (G = 128: a position's heads span two 64-row
+    blocks)."""
     for fmt in ("mxfp8", "mxfp4"):
         outs, refs, _ = _prefill_case(cuda_device, fmt, 100, [0, 70, 13],
                                       P=32, maxp=8, H=H, kvh=kvh, Dh=Dh)
@@ -388,14 +411,39 @@ def test_cuda_prefill_head_shapes(cuda_device, Dh, H, kvh):
 
 
 @pytest.mark.gpu
-def test_cuda_prefill_refuses_wide_heads(cuda_device):
-    """Dh = 128 does not fit the kernel's operand row: the wrapper raises
-    (no plain-version fallback on the card)."""
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxint8", "mxfp4", "mxint4"))
+@pytest.mark.parametrize("case", ("full", "window", "ragged"))
+@pytest.mark.parametrize("P,maxp", ((1024, 2), (64, 32), (32, 64)))
+@pytest.mark.parametrize("H,kvh", ((28, 4), (64, 8)))
+def test_cuda_prefill_at_head_dim_128(cuda_device, H, kvh, P, maxp, case,
+                                      fmt):
+    """Heads of 128 (two 64-feature operand panels, 64 rows a block, 64-key
+    stages): Qwen2-7B's G = 7 and DeepSeek-67B's G = 8, on 1024-, 64- and
+    32-row pages through scattered tables, whole 1024-row chunks over
+    prefixes of 0 to 1024 rows (one mid-page), a 300-key window, 77-row
+    chunks at mid-page starts with fills short of the chunk's end. Within
+    1e-4 of the plain version, chunk bytes equal to kv_encode, two calls
+    bitwise equal."""
+    C, starts, short, window = {
+        "full": (1024, [0, 1024, 640, 337], None, 0),
+        "window": (512, [0, 900, 333], None, 300),
+        "ragged": (77, [5, 1100, 205], [0, 3, 40], 0)}[case]
+    outs, refs, call = _prefill_case(cuda_device, fmt, C, starts, short,
+                                     window, P=P, maxp=maxp, H=H, kvh=kvh,
+                                     Dh=128)
+    _prefill_close(outs, refs)
+    assert torch.equal(outs[0], call()[0])
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_refuses_heads_wider_than_128(cuda_device):
+    """Dh = 256 does not fit the kernel's two operand panels: the wrapper
+    raises (no plain-version fallback on the card)."""
     dev = cuda_device
     kc, ks = kv_encode(torch.randn(3, 32, 256, device=dev))
     x = torch.randn(1, 8, 256, device=dev)
     bt = torch.ones(1, 2, dtype=torch.int32, device=dev)
     st = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError):
-        tops.mx_flash_prefill(torch.randn(1, 8, 4, 128, device=dev), x, x,
+        tops.mx_flash_prefill(torch.randn(1, 8, 2, 256, device=dev), x, x,
                               kc, ks, kc, ks, bt, st, st + 8)

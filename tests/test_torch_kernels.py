@@ -186,8 +186,19 @@ def test_flash_decode_paged_matches_pallas(fmt, window):
 def test_flash_prefill_matches_pallas(fmt):
     """Mid-page chunk starts: pool rows count only below q_start, chunk
     row i sits at q_start + i, and the byte outputs equal kv_encode."""
+    _flash_prefill_vs_pallas(fmt, Dh=32)
+
+
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxfp4"))
+def test_flash_prefill_matches_pallas_at_head_dim_128(fmt):
+    """The same at Qwen2-7B's head width (two 64-feature operand panels in
+    the kernel), G = 7."""
+    _flash_prefill_vs_pallas(fmt, Dh=128)
+
+
+def _flash_prefill_vs_pallas(fmt, Dh):
     rng = np.random.default_rng(3)
-    B, C, H, kvh, Dh, P, maxp = 2, 16, 14, 2, 32, 16, 3
+    B, C, H, kvh, P, maxp = 2, 16, 14, 2, 16, 3
     D, n_pages = kvh * Dh, 1 + B * maxp
     q_start = np.array([8, 24], np.int32)
     kv_len = q_start + C

@@ -452,3 +452,68 @@ def test_tampered_artifact_raises(jax_artifact, tmp_path):
     (bad / "aux.npz").write_bytes(b"not a zip")
     with pytest.raises(IntegrityError):
         load_artifact(bad, device="cpu", verify=False)
+
+
+WIDE_HEADS = dict(name="wide-heads", family="dense", n_layers=2, d_model=256,
+                  n_heads=2, n_kv_heads=1, head_dim=128, d_ff=512,
+                  vocab_size=512, qkv_bias=True, attn_chunk=64)
+
+
+def _wide_heads_params(seed):
+    """Random numpy weights of WIDE_HEADS in the packages' layout
+    (layer-stacked blocks, (in, out) matrices, QKV bias, untied head)."""
+    rng = np.random.default_rng(seed)
+    c = WIDE_HEADS
+    L, d, f = c["n_layers"], c["d_model"], c["d_ff"]
+    qd = c["n_heads"] * c["head_dim"]
+    kd = c["n_kv_heads"] * c["head_dim"]
+
+    def w(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(
+            np.float32)
+
+    def b(*shape):
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    ones = lambda *shape: np.ones(shape, np.float32)  # noqa: E731
+    blocks = {"ln1": ones(L, d), "wq": w(L, d, qd), "wk": w(L, d, kd),
+              "wv": w(L, d, kd), "wo": w(L, qd, d), "ln2": ones(L, d),
+              "wg": w(L, d, f), "wu": w(L, d, f), "wd": w(L, f, d),
+              "bq": b(L, qd), "bk": b(L, kd), "bv": b(L, kd)}
+    return {"blocks": blocks, "ln_f": ones(d),
+            "embed": (rng.standard_normal((c["vocab_size"], d))
+                      ).astype(np.float32),
+            "head": w(d, c["vocab_size"])}
+
+
+def test_paged_path_at_head_dim_128_matches_jax():
+    """A 2-layer model with heads of 128 (two over one KV head), the same
+    numpy weights in both packages (the port's through ``convert``): paged
+    chunked prefill and decode over an mxfp8 pool through the fused path
+    of both (the port's kernels' plain versions here, the Pallas kernels
+    in interpret mode there): logits within 1e-2 of max |logit|, the paged
+    path's bar."""
+    jcfg, tcfg = JArch(**WIDE_HEADS), TArch(**WIDE_HEADS)
+    npp = _wide_heads_params(5)
+    tp = convert.params_from_numpy(npp, device="cpu")
+    toks = np.random.default_rng(6).integers(
+        0, WIDE_HEADS["vocab_size"], (2, 128)).astype(np.int32)
+    lj = _paged_run(jtf, _jax_tree(npp), jcfg, JQM.off().with_backend("fused"),
+                    JKV("mxfp8"), toks, jnp.asarray)
+    lt = _paged_run(ttf, tp, tcfg, TQM.off().with_backend("fused"),
+                    TKV("mxfp8"), toks, torch.from_numpy)
+    for a, b in zip(lt, lj):
+        _close(a, b, 1e-2)
+
+
+def test_qwen2_7b_config_matches_jax():
+    """The port's copy of the Qwen2-7B config (CONFIG and REDUCED) equals
+    the JAX package's field for field."""
+    from repro.configs import qwen2_7b as jq
+    from repro_torch import configs as tconfigs
+    from repro_torch.configs import qwen2_7b as tq
+    for name in ("CONFIG", "REDUCED"):
+        assert (dataclasses.asdict(getattr(tq, name))
+                == dataclasses.asdict(getattr(jq, name)))
+    assert tconfigs.get("qwen2-7b") is tq.CONFIG
+    assert tconfigs.get_reduced("qwen2-7b") is tq.REDUCED

@@ -8,9 +8,19 @@ code value times an E8M0 power of two, exact. Q and the probabilities P are
 f32 and are split into three bf16 terms, hi = bf16(x), mid = bf16(x - hi),
 lo = bf16(x - hi - mid), which sum to x exactly; every bf16 x bf16 product
 is exact in f32, so S = Q K^T and P V differ from the plain version only in
-the order of f32 additions. The online softmax runs per 64-key tile: the
-prefix's tiles (keys aligned to 64, pool rows valid below q_start), then
-the chunk's (chunk rows aligned to 64, row i at q_start + i).
+the order of f32 additions.
+
+The model follows the kernel's tiling (``tiling``): a block owns up to ROWS
+consecutive (position, head) rows of a lane (whole positions where the G
+heads of a KV head fit) and walks the keys its rows can see in stages of TS
+keys aligned to TS — the prefix's (pool rows valid below q_start), then
+the chunk's (row i at q_start + i) — from the window's first key to its
+last position; each stage is NH tiles of 64 keys. (A consumer warpgroup
+also skips a tile none of its 64 rows can see: an exact no-op of the
+online softmax, so the model takes a block's rows together.) S sums the
+k16 products of each 64-feature panel of Q and K. Heads up to 64 wide:
+128 rows, 128-key stages, one panel; up to 128 wide: 64 rows, 64-key
+stages, two panels.
 
 Tolerance: each output is sum_k p_k v_k / l with 0 <= p_k <= 1, and the
 model and the plain version round the same exact products' sums in f32 at
@@ -38,6 +48,11 @@ from repro_torch.kernels import ref as tref
 
 KV_FMTS = ("mxfp8", "mxint8", "mxfp4", "mxint4")
 TOL = 1e-6          # of max |out|, argued in the module docstring
+# Heads of 128: each score sums twice the products, in six partial sums (3
+# terms x 2 panels), and the model lands at up to 1.05e-6 of max |out| from
+# the plain version on the WIDE cases (measured; the Pallas kernel 8.0e-7),
+# a two-term split at 2.2e-6 or more: held to 1.5e-6.
+TOL_WIDE = 1.5e-6
 TK = 64             # keys per tile
 
 
@@ -64,12 +79,47 @@ def split_terms(x: torch.Tensor, terms: int = 3):
     return out
 
 
-def prefill_model(q, k_chunk, v_chunk, k_codes, k_scales, v_codes, v_scales,
-                  block_tables, q_start, kv_len, fmt="mxfp8", window=0,
-                  terms=3, off_by_one=None):
-    """The kernel's arithmetic in plain PyTorch: returns out (B, C, H, Dh).
-    ``off_by_one`` ("causal": the diagonal key masked; "pool": the pool row
-    at q_start counted too) models a wiring fault, for the negative
+def tiling(Dh):
+    """(ROWS, TS, NP) of the kernel's instantiation for a head of Dh: rows a
+    block, keys a stage, 64-feature panels."""
+    return (128, 128, 1) if Dh <= 64 else (64, 64, 2)
+
+
+def stages(st, kl, i0, i1, C, window, limit, TS, pool_extra=0):
+    """The kernel's ``Plan``: the (source, first key, end) of each stage of
+    the query positions [i0, i1) of a lane at q_start st, kv_len kl; source
+    0 the pool (key = position), 1 the chunk (row i at st + i).
+    ``pool_extra`` = 1 counts the pool row at q_start too (a fault)."""
+    plo = max(0, st + i0 - window + 1) if window > 0 else 0
+    phi = min(st + pool_extra, kl, st + i1, limit)
+    out = [(0, k0, phi) for k0 in range(plo & ~(TS - 1), phi, TS)
+           if phi > plo]
+    clo = max(0, i0 - window + 1) if window > 0 else 0
+    chi = min(C, i1, kl - st)
+    out += [(1, k0, chi) for k0 in range(clo & ~(TS - 1), chi, TS)
+            if chi > clo]
+    return out
+
+
+def prefill_model(*args, **kw):
+    """The kernel's arithmetic, in its tiling, in plain PyTorch: returns
+    out (B, C, H, Dh); the arguments of :func:`_prefill_model`. Its many
+    small products run on one thread (restored after): with the suite's
+    test workers sharing the machine's cores, a thread pool per product
+    cost more than the products."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _prefill_model(*args, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _prefill_model(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
+                   v_scales, block_tables, q_start, kv_len, fmt="mxfp8",
+                   window=0, terms=3, off_by_one=None):
+    """``off_by_one`` ("causal": the diagonal key masked; "pool": the pool
+    row at q_start counted too) models a wiring fault, for the negative
     checks."""
     B, C, H, Dh = q.shape
     kc, ks = tpk.kv_encode(k_chunk, fmt)
@@ -79,58 +129,65 @@ def prefill_model(q, k_chunk, v_chunk, k_codes, k_scales, v_codes, v_scales,
     D = k_chunk.shape[-1]
     kvh = D // Dh
     G = H // kvh
+    ROWS, TS, NP = tiling(Dh)
+    RPB = ROWS // G * G if G <= ROWS else ROWS
     sm = tref.sm_scale(Dh)
     out = torch.zeros(B, C, H, Dh)
+
+    def dec(codes, scales):
+        return _bf16_exact(tpk.kv_decode(codes, scales, fmt))
+
     for b in range(B):
         st, kl = int(q_start[b]), int(kv_len[b])
         pages = block_tables[b].long()
-
-        def dec(codes, scales):
-            return _bf16_exact(tpk.kv_decode(codes, scales, fmt))
-
         pool_k = dec(k_codes[pages], k_scales[pages]).reshape(maxp * P, D)
         pool_v = dec(v_codes[pages], v_scales[pages]).reshape(maxp * P, D)
-        phi = min(st, kl, maxp * P)
-        if off_by_one == "pool":
-            phi = min(st + 1, kl, maxp * P)
-        chi = min(C, kl - st)
-        # (keys, values, key positions, end) of each 64-key tile
-        tiles = [(pool_k, pool_v, k0, 0, phi) for k0 in range(0, phi, TK)]
-        tiles += [(dec(kc[b], ks[b]), dec(vc[b], vs[b]), k0, st, chi)
-                  for k0 in range(0, max(chi, 0), TK)]
-        qp = (st + torch.arange(C)).repeat_interleave(G)     # row i G + g
+        src_kv = [(pool_k, pool_v, 0),
+                  (dec(kc[b], ks[b]), dec(vc[b], vs[b]), st)]
+        limit = maxp * P
         for hk in range(kvh):
-            qg = q[b, :, hk * G:(hk + 1) * G].reshape(C * G, Dh).float()
-            qt = split_terms(qg, terms)
-            m = torch.full((C * G,), tref.NEG_INF)
-            l = torch.zeros(C * G)
-            acc = torch.zeros(C * G, Dh)
             cols = slice(hk * Dh, (hk + 1) * Dh)
-            for kk, vv, k0, kb, hi in tiles:
-                k = torch.arange(k0, k0 + TK)
-                valid = k < hi
-                kt = torch.zeros(TK, Dh)
-                vt = torch.zeros(TK, Dh)
-                kt[valid] = kk[k[valid], cols]
-                vt[valid] = vv[k[valid], cols]
-                s = sum(t @ kt.T for t in qt) * sm
-                kp = kb + k
-                ok = valid[None, :] & (kp[None, :] <= qp[:, None])
-                if off_by_one == "causal":
-                    ok = valid[None, :] & (kp[None, :] < qp[:, None])
-                if window:
-                    ok = ok & (kp[None, :] > qp[:, None] - window)
-                s = torch.where(ok, s, torch.tensor(-torch.inf))
-                m_new = torch.maximum(m, s.amax(dim=1))
-                p = torch.where(ok, torch.exp(s - m_new[:, None]),
-                                torch.zeros(()))
-                corr = torch.exp(m - m_new)
-                l = l * corr + p.sum(dim=1)
-                acc = acc * corr[:, None] + sum(t @ vt
-                                                for t in split_terms(p, terms))
-                m = m_new
-            o = acc / torch.clamp(l, min=1e-30)[:, None]
-            out[b, :, hk * G:(hk + 1) * G] = o.reshape(C, G, Dh)
+            qk = q[b, :, hk * G:(hk + 1) * G].reshape(C * G, Dh).float()
+            for rb in range(0, C * G, RPB):          # a block's rows
+                R = min(RPB, C * G - rb)
+                i0, i1 = rb // G, (rb + R - 1) // G + 1
+                plan = stages(st, kl, i0, i1, C, window, limit, TS,
+                              int(off_by_one == "pool"))
+                rows = torch.arange(rb, rb + R)
+                qp = st + rows // G
+                qt = split_terms(qk[rows], terms)
+                m = torch.full((R,), tref.NEG_INF)
+                l = torch.zeros(R)
+                acc = torch.zeros(R, Dh)
+                for src, k0s, hi in plan:
+                    kk, vv, kb = src_kv[src]
+                    for k0 in range(k0s, min(k0s + TS, hi), TK):
+                        k = torch.arange(k0, k0 + TK)
+                        valid = k < hi
+                        kt = torch.zeros(TK, Dh)
+                        vt = torch.zeros(TK, Dh)
+                        kt[valid] = kk[k[valid], cols]
+                        vt[valid] = vv[k[valid], cols]
+                        s = sum(t[:, f:f + 64] @ kt[:, f:f + 64].T
+                                for t in qt
+                                for f in range(0, 64 * NP, 64)) * sm
+                        kp = kb + k
+                        ok = valid[None, :] & (kp[None, :] <= qp[:, None])
+                        if off_by_one == "causal":
+                            ok = valid[None, :] & (kp[None, :] < qp[:, None])
+                        if window:
+                            ok = ok & (kp[None, :] > qp[:, None] - window)
+                        s = torch.where(ok, s, torch.tensor(-torch.inf))
+                        m_new = torch.maximum(m, s.amax(dim=1))
+                        p = torch.where(ok, torch.exp(s - m_new[:, None]),
+                                        torch.zeros(()))
+                        corr = torch.exp(m - m_new)
+                        l = l * corr + p.sum(dim=1)
+                        acc = acc * corr[:, None] + sum(
+                            t @ vt for t in split_terms(p, terms))
+                        m = m_new
+                o = acc / torch.clamp(l, min=1e-30)[:, None]
+                out[b, qp - st, hk * G + rows % G] = o
     return out
 
 
@@ -158,10 +215,18 @@ CASES = {"midpage": (40, (8, 37), (0, 0), 0),
          "ragged": (23, (5, 64), (0, -6), 0)}
 
 
-def _case(name, fmt, seed=30):
-    C, starts, short, window = CASES[name]
+# the query heads over the KV heads, and the head width, of the wide
+# cases: Qwen2-7B's G = 7 at head_dim 128 on every CASES entry, and G = 72,
+# more heads than a block's 64 rows, so a position's heads span two blocks
+WIDE = {"midpage": (14, 2, 128), "window": (14, 2, 128),
+        "ragged": (14, 2, 128), "g72": (72, 1, 128)}
+
+
+def _case(name, fmt, seed=30, heads=(14, 2, 64)):
+    C, starts, short, window = CASES["midpage" if name == "g72" else name]
     rng = np.random.default_rng(seed)
-    B, H, kvh, Dh, P, maxp = 2, 14, 2, 64, 16, 8
+    (H, kvh, Dh), P, maxp = heads, 16, 8
+    B = 2
     D, n_pages = kvh * Dh, 1 + B * maxp
     q_start = np.array(starts, np.int32)
     kv_len = (q_start + C + np.array(short)).astype(np.int32)
@@ -205,6 +270,31 @@ def test_prefill_model_matches_plain_and_pallas(fmt, case):
         *map(jnp.asarray, pool), jnp.asarray(bt), jnp.asarray(q_start),
         jnp.asarray(kv_len), fmt, window=window, interpret=True)[0]
     assert _err(y, _t(oj)) <= TOL
+
+
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxint4"))
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_wide_head_model_matches_plain_and_pallas(fmt, case):
+    """The tiling of heads up to 128 wide (64 rows a block, 64-key stages,
+    two 64-feature panels), in an 8-bit and a 4-bit KV format (the decode
+    of each format is the narrow tiling's, tested in all four above):
+    within TOL_WIDE of max |out| of the plain version and of the Pallas
+    kernel, and a two-term split or a mask off by one row still outside
+    it."""
+    args = _case(case, fmt, heads=WIDE[case])
+    q, kd, vd, pool, bt, q_start, kv_len, window = args
+    y = _model(args, fmt)
+    ref = _plain(args, fmt)
+    assert _err(y, ref) <= TOL_WIDE
+    oj = jops.mx_flash_prefill(
+        jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd),
+        *map(jnp.asarray, pool), jnp.asarray(bt), jnp.asarray(q_start),
+        jnp.asarray(kv_len), fmt, window=window, interpret=True)[0]
+    assert _err(y, _t(oj)) <= TOL_WIDE
+    if fmt == "mxfp8":
+        assert _err(_model(args, fmt, terms=2), ref) > TOL_WIDE
+        for fault in ("causal", "pool"):
+            assert _err(_model(args, fmt, off_by_one=fault), ref) > 1e3 * TOL
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
