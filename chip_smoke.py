@@ -37,7 +37,18 @@ Phases, in order (each raises on failure; nothing is caught):
    plain versions;
 4. the standalone kernel entry points (``ops.mx_quantize``,
    ``ops.t3_quantize``, ``ops.mx_gemm``) driven as a caller would, on a
-   weight and activations of the served model's widths.
+   weight and activations of the served model's widths;
+5. sampling and speculative decoding on phase 3's Qwen2-0.5B engines:
+   the threefry integers and uniforms on the card bitwise equal to the
+   CPU's; temperature 0 giving phase 3's greedy tokens on all three
+   paths; a seeded sampled run (temperature 0.8, top-k 50, top-p 0.95)
+   replayed token for token on the paged path; spec decoding at k = 3
+   (verify M = 16) and k = 4 (M = 20) on both continuous layouts against
+   non-spec greedy on repetition-friendly prompts (first divergence and
+   its top-2 margin, acceptance, tok/s, GEMM launches per verify step),
+   the verify logits against a sequential decode of the same tokens
+   (bar: 1e-2 of max |logit|), and the packed GEMM timed at M = 16 and
+   20 (run beside phase 2, while the profiler records every event).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -215,8 +226,6 @@ def card_facts(torch, build):
 # ---------------------------------------------------------------------------
 
 def check_gemm(torch, dev, gen):
-    from repro_torch.core import mx as mxlib
-    from repro_torch.kernels import ops, packing, ref
     cases = [(m, k, n, t3) for m in (4, 4096)
              for (k, n, t3) in ((896, 896, False), (896, 128, False),
                                 (896, 4864, False), (4864, 896, True))]
@@ -224,44 +233,51 @@ def check_gemm(torch, dev, gen):
     cases += [(1024, 896, 4864, False), (5296, 896, 4864, False)]
     entries = []
     for M, K, N, t3 in cases:
-        x = torch.randn(M, K, generator=gen, device=dev)
-        w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
-        pw = packing.PackedWeight.from_dense(w)
-        y = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
-        y2 = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
-        yp = ref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
-                                      t3=t3)
-        torch.cuda.synchronize()
-        err = (y - yp).abs().max().item()
-        tol = 1e-4 * yp.abs().max().item()
-        same = torch.equal(y, y2)
-        log(f"gemm M={M} K={K} N={N} t3={t3}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}); two calls bitwise equal: {same}")
-        if not err <= tol:
-            raise AssertionError(f"mx_gemm_packed disagrees with its plain "
-                                 f"version at M={M} K={K} N={N} t3={t3}")
-        if not same:
-            raise AssertionError(f"mx_gemm_packed is not repeatable at M={M} "
-                                 f"K={K} N={N}")
-        iters = 200 if M == 4 else 20
-        xq = mxlib.quantize(x)
-        wd = pw.to_dense()
-        t = timed(torch, f"gemm M={M} K={K} N={N} t3={t3}",
-                  lambda: ops.mx_gemm_packed(x, pw.codes_packed,
-                                             pw.scales_e8m0, t3=t3),
-                  lambda: ref.mx_matmul_packed_ref(
-                      x, pw.codes_packed, pw.scales_e8m0, t3=t3),
-                  lambda: torch.matmul(xq, wd), iters, max(iters // 4, 5))
-        nbytes = M * K * 4 + K * N // 2 + K * N // 32 + M * N * 4
-        b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
-        log(f"gemm M={M} K={K} N={N} t3={t3}: bound_ms {b:.4f} ({by}), "
-            f"share of the bound {b / t['ms']:.3f}")
+        e = gemm_case(torch, dev, gen, M, K, N, t3)
         if (K, N) == (896, 4864) and M in (4, 4096):
-            entries.append({"name": "mx_gemm_packed",
-                            "shape": f"M={M} K={K} N={N} t3={t3}",
-                            "max_abs_err": err, **t, "bound_ms": b,
-                            "bound_by": by})
+            entries.append(e)
     return entries
+
+
+def gemm_case(torch, dev, gen, M, K, N, t3):
+    """mx_gemm_packed at one shape: checked against its plain version (and
+    a second call, bitwise), timed beside the plain version and f32
+    ``torch.matmul``; returns its ``kernels`` entry."""
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels import ops, packing, ref
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    pw = packing.PackedWeight.from_dense(w)
+    y = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    y2 = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    yp = ref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    torch.cuda.synchronize()
+    err = (y - yp).abs().max().item()
+    tol = 1e-4 * yp.abs().max().item()
+    same = torch.equal(y, y2)
+    log(f"gemm M={M} K={K} N={N} t3={t3}: max_abs_err {err:.3e} "
+        f"(tol {tol:.3e}); two calls bitwise equal: {same}")
+    if not err <= tol:
+        raise AssertionError(f"mx_gemm_packed disagrees with its plain "
+                             f"version at M={M} K={K} N={N} t3={t3}")
+    if not same:
+        raise AssertionError(f"mx_gemm_packed is not repeatable at M={M} "
+                             f"K={K} N={N}")
+    iters = 200 if M == 4 else 20
+    xq = mxlib.quantize(x)
+    wd = pw.to_dense()
+    t = timed(torch, f"gemm M={M} K={K} N={N} t3={t3}",
+              lambda: ops.mx_gemm_packed(x, pw.codes_packed,
+                                         pw.scales_e8m0, t3=t3),
+              lambda: ref.mx_matmul_packed_ref(
+                  x, pw.codes_packed, pw.scales_e8m0, t3=t3),
+              lambda: torch.matmul(xq, wd), iters, max(iters // 4, 5))
+    nbytes = M * K * 4 + K * N // 2 + K * N // 32 + M * N * 4
+    b, by = bound_ms(nbytes, 2.0 * M * N * K, PEAK_FP8)
+    log(f"gemm M={M} K={K} N={N} t3={t3}: bound_ms {b:.4f} ({by}), "
+        f"share of the bound {b / t['ms']:.3f}")
+    return {"name": "mx_gemm_packed", "shape": f"M={M} K={K} N={N} t3={t3}",
+            "max_abs_err": err, **t, "bound_ms": b, "bound_by": by}
 
 
 def _paged_pool(torch, dev, gen, n_pages, P, D, fmt):
@@ -785,7 +801,7 @@ def end_to_end(torch, dev, seed: int):
                       device=dev)
 
         # the engine's default path: wave scheduler, contiguous cache
-        eng, _, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
+        eng, rw, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
                                scheduler="wave", kv_layout="contiguous",
                                **common)
         check_contiguous_launches(lw, st, L, gemms_per_forward,
@@ -798,7 +814,7 @@ def end_to_end(torch, dev, seed: int):
                            qm.with_backend("fused"), eng.kv_quant, dev, seed)
         del eng
 
-        eng, _, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
+        eng, rc, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
                                scheduler="continuous",
                                kv_layout="contiguous", **common)
         check_contiguous_launches(
@@ -833,8 +849,12 @@ def end_to_end(torch, dev, seed: int):
     log(f"e2e: paged greedy tokens fused == ref: {agree}/"
         f"{sum(len(r.out) for r in reqs)}")
     del eng, ref_eng
+    greedy = {name: [r.out for r in rs]
+              for name, rs in (("wave", rw), ("continuous", rc),
+                               ("paged", reqs))}
     launches["paged_qwen2_7b"] = qwen2_7b_path(torch, dev, seed)
-    return launches, params
+    return launches, dict(params=params, cfg=cfg, qm=qm, prompts=prompts,
+                          greedy=greedy)
 
 
 def check_paged_run(eng, lp, st, L, tag):
@@ -1076,6 +1096,289 @@ def teacher_forced(torch, ops, run, qm):
     return {n: e for n, e in worst.items() if n in seen}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: sampling and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+SPEC_KS = (3, 4)          # verify M = 4 lanes x (k + 1) = 16 and 20
+VERIFY_BAR = 1e-2         # verify against sequential decode, of max |logit|
+
+
+def threefry_on_card(torch, dev, sampling, n: int = 4096) -> None:
+    """(a) keys, random bits and uniforms of n (seed, step, channel)
+    triples, on the card and on the CPU: bitwise equal."""
+    rng = np.random.default_rng(11)
+    trip = [torch.as_tensor(a) for a in (
+        rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64),
+        rng.integers(0, 1 << 20, n), rng.integers(0, 2, n))]
+    out = {}
+    for where in ("cpu", dev):
+        k = sampling._key(*(t.to(where) for t in trip))
+        out[str(where)] = [k[0], k[1], sampling.random_bits(k, 64),
+                           sampling.uniform(k).view(torch.int32)]
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(out[str(dev)], out["cpu"]))
+    log(f"phase 5 (a): threefry keys, bits and uniforms of {n} triples on "
+        f"the card bitwise equal to the CPU's: {same}")
+    if not same:
+        raise AssertionError("threefry on the card differs from the CPU")
+
+
+def rep_prompts(rng, vocab: int, n: int = 4, length: int = 96):
+    """Repetition-friendly prompts: random motifs of 3 to 6 tokens tiled."""
+    out = []
+    for i in range(n):
+        motif = rng.integers(0, vocab, 3 + i)
+        out.append(np.tile(motif, length // len(motif) + 1)[:length]
+                   .astype(np.int32))
+    return out
+
+
+def _run(torch, eng, reqs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for r in reqs:
+        if r.state.value != "finished" or len(r.out) != r.max_new:
+            raise AssertionError(f"request ended {r.state.value} with "
+                                 f"{len(r.out)} tokens: {r.error}")
+    return [r.out for r in reqs], sum(len(r.out) for r in reqs) / dt
+
+
+def _clone_cache(cache):
+    return {k: type(v)(v.codes.clone(), v.scales.clone(), v.fmt, v.dtype)
+            for k, v in cache.items()}
+
+
+def verify_vs_sequential(torch, transformer, params, cfg, qm, kv_quant,
+                         prompts, k, layout, page_size, dev):
+    """Teacher-forced: four lanes' prompts prefilled, then the same k + 1
+    tokens per lane through k + 1 sequential decode steps and through one
+    verify step (M = 4 (k + 1)) from copies of that cache. Returns the
+    worst |verify - decode| over max |logit|, and the packed GEMM's
+    launches in the verify step."""
+    from repro_torch.kernels import ops
+    B, S, C = len(prompts), len(prompts[0]), cfg.attn_chunk
+    chunk = np.zeros((B, C), np.int32)
+    chunk[:, :S] = np.stack(prompts)
+    toks = torch.as_tensor(chunk, device=dev)
+    rng = np.random.default_rng(k)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, k + 1))
+                             .astype(np.int32), device=dev)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    if layout == "paged":
+        bt = torch.arange(1, B + 1, dtype=torch.int32, device=dev)[:, None]
+        cache = transformer.init_cache_paged(cfg, B + 1, page_size,
+                                             kv_quant=kv_quant, device=dev)
+        _, cache = transformer.prefill_chunk_paged(
+            params, cfg, cache, bt, toks, 0,
+            torch.full((B,), S - 1, device=dev), qm)
+    else:
+        cache = transformer.init_cache(cfg, B, 2048, kv_quant=kv_quant,
+                                       device=dev)
+        _, cache = transformer.prefill_chunk(params, cfg, cache, toks, 0,
+                                             S - 1, qm)
+    seq_cache, ver_cache = _clone_cache(cache), cache
+    seq = []
+    for j in range(k + 1):
+        p = (pos + j).to(dev)
+        if layout == "paged":
+            lg, seq_cache = transformer.decode_paged(
+                params, cfg, seq_cache, forced[:, j], p, bt, qm)
+        else:
+            lg, seq_cache = transformer.decode(params, cfg, seq_cache,
+                                               forced[:, j], p, qm)
+        seq.append(lg)
+    seq = torch.stack(seq, dim=1)
+    nv = torch.full((B,), k + 1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    if layout == "paged":
+        ver, _ = transformer.verify_paged(params, cfg, ver_cache, forced,
+                                          pos, nv, bt, qm)
+    else:
+        ver, _ = transformer.verify(params, cfg, ver_cache, forced, pos, nv,
+                                    qm)
+    torch.cuda.synchronize()
+    gemms = ops.launches["mx_gemm_packed"]
+    err = ((ver - seq).abs().max() / seq.abs().max()).item()
+    return err, gemms
+
+
+def top2_margin(torch, transformer, params, cfg, qm, kv_quant, prompt,
+                toks, t, layout, page_size, dev):
+    """Top-2 margin and max |logit| of the logits that choose token t of a
+    greedy run: ``prompt`` prefilled, then toks[:t] decoded one by one, on
+    the layout the non-spec run decoded them on."""
+    C = cfg.attn_chunk
+    chunk = torch.zeros((1, C), dtype=torch.int32, device=dev)
+    chunk[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
+    if layout == "paged":
+        bt = torch.tensor([[1]], dtype=torch.int32, device=dev)
+        cache = transformer.init_cache_paged(cfg, 2, page_size,
+                                             kv_quant=kv_quant, device=dev)
+        lg, cache = transformer.prefill_chunk_paged(
+            params, cfg, cache, bt, chunk, 0, len(prompt) - 1, qm)
+    else:
+        cache = transformer.init_cache(cfg, 1, 2048, kv_quant=kv_quant,
+                                       device=dev)
+        lg, cache = transformer.prefill_chunk(params, cfg, cache, chunk, 0,
+                                              len(prompt) - 1, qm)
+    for j in range(t):
+        tok = torch.tensor([int(toks[j])], dtype=torch.int32, device=dev)
+        pos = torch.tensor([len(prompt) + j], dtype=torch.int32, device=dev)
+        if layout == "paged":
+            lg, cache = transformer.decode_paged(params, cfg, cache, tok,
+                                                 pos, bt, qm)
+        else:
+            lg, cache = transformer.decode(params, cfg, cache, tok, pos, qm)
+    top = lg[0].float().topk(2).values
+    return (top[0] - top[1]).item(), lg[0].abs().max().item()
+
+
+def sampling_and_spec(torch, dev, seed, card, params, cfg, qm, prompts,
+                      greedy):
+    """Phase 5 on phase 3's Qwen2-0.5B (its artifact's weights, 4 lanes,
+    max_len 2048, mxfp8 KV, fused backend): (a) threefry on the card, (b)
+    temperature 0 against phase 3's greedy tokens on the three paths, (c)
+    a seeded sampled run replayed on the paged path, (d) spec decoding at
+    k = 3 and 4 on both continuous layouts against non-spec greedy, and
+    verify against sequential decode, (e) the spec counters, tok/s and
+    GEMM launches per verify step. (f), the packed GEMM at the verify
+    shapes, runs beside phase 2 (:func:`verify_gemm_times`)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving import sampling
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.policy import SpecConfig
+
+    t_start = time.perf_counter()
+    L = cfg.n_layers
+    # the paged engine's page: attn_chunk rounded up to 64 rows
+    page = cfg.attn_chunk * max(1, -(-64 // cfg.attn_chunk))
+    log(f"phase 5 on {card}")
+    threefry_on_card(torch, dev, sampling)
+    fused = qm.with_backend("fused")
+    common = dict(batch_size=4, max_len=2048, kv_cache="mxfp8", device=dev)
+    paths = {"wave": dict(scheduler="wave", kv_layout="contiguous"),
+             "continuous": dict(scheduler="continuous",
+                                kv_layout="contiguous"),
+             "paged": dict(scheduler="continuous", kv_layout="paged")}
+
+    # (b) temperature 0 is the greedy path
+    t0p = sampling.SamplingParams(temperature=0.0, top_k=5, top_p=0.5)
+    for name, kw in paths.items():
+        eng = Engine(params, cfg, fused, **kw, **common)
+        outs, _ = _run(torch, eng, [
+            Request(prompt=p, max_new=32,
+                    sampling=dataclasses.replace(t0p, seed=i))
+            for i, p in enumerate(prompts)])
+        same = all(np.array_equal(a, b) for a, b in zip(outs, greedy[name]))
+        log(f"phase 5 (b): temperature 0 on {name} equals phase 3's greedy "
+            f"tokens: {same}")
+        if not same:
+            raise AssertionError(f"temperature 0 differs from greedy on "
+                                 f"{name}")
+
+    # (c) a seeded sampled run replays
+    sp = sampling.SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    runs, rates = [], []
+    for _ in range(2):
+        eng = Engine(params, cfg, fused, **paths["paged"], **common)
+        outs, rate = _run(torch, eng, [
+            Request(prompt=p, max_new=32,
+                    sampling=dataclasses.replace(sp, seed=i))
+            for i, p in enumerate(prompts)])
+        runs.append(outs)
+        rates.append(rate)
+    same = all(np.array_equal(a, b) for a, b in zip(*runs))
+    moved = sum(int((a != b).sum()) for a, b in zip(runs[0], greedy["paged"]))
+    log(f"phase 5 (c): sampled paged run (T 0.8, top-k 50, top-p 0.95, "
+        f"seeds 0-3) replays: {same}; {moved}/128 tokens differ from greedy; "
+        f"{rates[0]:.1f} and {rates[1]:.1f} tok/s on {card}")
+    if not same:
+        raise AssertionError("a seeded sampled run did not replay")
+    if moved == 0:
+        raise AssertionError("sampling at temperature 0.8 gave the greedy "
+                             "tokens")
+
+    # (d, e) spec decoding against non-spec greedy
+    rp = rep_prompts(np.random.default_rng(seed + 5), cfg.vocab_size)
+    for name in ("continuous", "paged"):
+        eng = Engine(params, cfg, fused, **paths[name], **common)
+        base, base_rate = _run(torch, eng, [Request(prompt=p, max_new=32)
+                                            for p in rp])
+        for k in SPEC_KS:
+            eng = Engine(params, cfg, fused, spec=SpecConfig(k=k),
+                         **paths[name], **common)
+            ops.reset_launches()
+            outs, rate = _run(torch, eng, [Request(prompt=p, max_new=32)
+                                           for p in rp])
+            launches = dict(ops.launches)
+            st = eng.stats()
+            per_step = ((launches["mx_gemm_packed"]
+                         - 7 * L * st["prefill_chunk_steps"])
+                        / st["decode_steps"])
+            log(f"phase 5 (e) spec k={k} {name}: proposed "
+                f"{st['spec_proposed_tokens']}, accepted "
+                f"{st['spec_accepted_tokens']}, acceptance "
+                f"{st['spec_acceptance']:.3f}; {st['decode_steps']} verify "
+                f"steps for 128 tokens; {rate:.1f} tok/s against non-spec "
+                f"{base_rate:.1f} on {card}; mx_gemm_packed launches per "
+                f"verify step {per_step:.1f} (M = {4 * (k + 1)}); launches "
+                f"{launches}")
+            if st["decode_steps"] and launches["mx_flash_decode_paged"] \
+                    + launches["mx_flash_decode"]:
+                raise AssertionError("a verify step launched a decode "
+                                     "kernel")
+            div = [(i, int(np.flatnonzero(a != b)[0]))
+                   for i, (a, b) in enumerate(zip(outs, base))
+                   if (a != b).any()]
+            if div:
+                i, t = div[0]
+                margin, scale = top2_margin(
+                    torch, transformer, params, cfg, fused, eng.kv_quant,
+                    rp[i], base[i], t, name, page, dev)
+                log(f"phase 5 (d) spec k={k} {name}: {len(div)} of 4 "
+                    f"requests part from non-spec greedy; first: request "
+                    f"{i} at token {t}, top-2 margin {margin:.4e} = "
+                    f"{margin / scale:.3e} of max |logit| {scale:.4e}")
+                if not margin <= VERIFY_BAR * scale:
+                    raise AssertionError(
+                        f"spec k={k} {name}: tokens part from greedy at a "
+                        f"top-2 margin outside the {VERIFY_BAR} bar")
+            else:
+                log(f"phase 5 (d) spec k={k} {name}: tokens equal non-spec "
+                    f"greedy on all 4 requests")
+            err, gemms = verify_vs_sequential(
+                torch, transformer, params, cfg, fused, eng.kv_quant, rp, k,
+                name, page, dev)
+            log(f"phase 5 (d) verify k={k} (M = {4 * (k + 1)}) {name}: "
+                f"teacher-forced worst |verify - sequential decode| "
+                f"{err:.3e} of max |logit| (bar {VERIFY_BAR}); "
+                f"mx_gemm_packed launches in the verify step {gemms}")
+            if not err <= VERIFY_BAR:
+                raise AssertionError(f"verify k={k} {name} is {err:.3e} of "
+                                     f"max |logit| from sequential decode")
+
+    log(f"phase 5: {time.perf_counter() - t_start:.1f} s")
+
+
+def verify_gemm_times(torch, dev, seed: int) -> None:
+    """Phase 5 (f), run beside phase 2: the packed GEMM at the verify
+    shapes (M = 4 (k + 1) rows for k = 3, 4; Qwen2-0.5B's (896, 4864) and,
+    with T3, (4864, 896)), checked and timed as phase 2 times its shapes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    for M in (4 * (k + 1) for k in SPEC_KS):
+        for K, N, t3 in ((896, 4864, False), (4864, 896, True)):
+            log(f"phase 5 (f): the verify GEMM at M = {M}")
+            gemm_case(torch, dev, gen, M, K, N, t3)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1100,14 +1403,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_facts(torch, build)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    entries = [*check_gemm(torch, dev, gen),
+    gemm_entries = check_gemm(torch, dev, gen)
+    verify_gemm_times(torch, dev, args.seed)
+    entries = [*gemm_entries,
                *check_prefill(torch, dev, gen, args.seed),
                check_decode(torch, dev, gen), check_flash_decode(torch, dev,
                                                                  gen),
                *check_quantizers(torch, dev, gen),
                check_unpacked_gemm(torch, dev, gen)]
-    launches, params = end_to_end(torch, dev, args.seed)
-    launches["standalone"] = standalone_path(torch, dev, params)
+    launches, served = end_to_end(torch, dev, args.seed)
+    launches["standalone"] = standalone_path(torch, dev, served["params"])
+    sampling_and_spec(torch, dev, args.seed, card, **served)
     # each kernel's launches on the path that carries it: the engine's
     # default (wave, contiguous) for the GEMM and the contiguous decode,
     # the paged run for the paged kernels, the standalone entry points

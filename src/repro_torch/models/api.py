@@ -74,3 +74,18 @@ def init_cache_paged(cfg: ArchConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, kv_quant=None, device=None):
     return module_for(cfg).init_cache_paged(cfg, n_pages, page_size, dtype,
                                             kv_quant=kv_quant, device=device)
+
+
+def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
+           qm: QuantMode = QuantMode.off()):
+    """Multi-token speculative verify step over the contiguous cache:
+    per-slot next-token logits (B, C, V)."""
+    return module_for(cfg).verify(params, cfg, cache, inputs, pos, n_valid,
+                                  qm)
+
+
+def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
+                 block_tables, qm: QuantMode = QuantMode.off()):
+    """Multi-token speculative verify step over a paged pool."""
+    return module_for(cfg).verify_paged(params, cfg, cache, inputs, pos,
+                                        n_valid, block_tables, qm)

@@ -58,6 +58,39 @@ def kv_write_slice(cache, new: torch.Tensor, start: int):
     return cache
 
 
+def spec_slots(pos, n_valid, C: int, limit: int | None = None) -> tuple:
+    """The slots a speculative verify step writes: lane b slot j for
+    ``j < n_valid[b]`` (and ``pos[b] + j < limit`` when given), as long
+    tensors (b, j, t) with ``t = pos[b] + j`` its logical position, on
+    ``pos``' device. Computed once per verify forward: with host tensors it
+    needs no device sync."""
+    pv = torch.as_tensor(pos).long()
+    nv = torch.as_tensor(n_valid, device=pv.device).long()
+    j = torch.arange(C, device=pv.device)[None, :]
+    t = pv[:, None] + j
+    ok = j < nv[:, None]
+    if limit is not None:
+        ok = ok & (t < limit)
+    b, jj = ok.nonzero(as_tuple=True)
+    return b, jj, t[b, jj]
+
+
+def kv_write_spec(cache, new: torch.Tensor, slots: tuple):
+    """Per-lane multi-token write of the speculative verify step: slot
+    (b, j, t) of :func:`spec_slots` writes ``new[b, j]`` at row t of lane
+    b; the other slots (past a lane's draft count, or past the cache) write
+    nothing. cache (B, S, kv_dim) dense or ``PackedKV``; new (B, C, kv_dim)
+    dense."""
+    b, j, t = (s.to(new.device) for s in slots)
+    if isinstance(cache, PackedKV):
+        c, s = kv_encode(new[b, j][None], cache.fmt)
+        cache.codes[b, t] = c[0]
+        cache.scales[b, t] = s[0]
+        return cache
+    cache[b, t] = new[b, j].to(cache.dtype)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Paged-cache writes
 # ---------------------------------------------------------------------------
@@ -120,6 +153,27 @@ def kv_scatter_chunk_paged(pool: PagedKV, codes: torch.Tensor,
                                     start)
     pool.codes[pages, offs] = codes
     pool.scales[pages, offs] = scales
+    return pool
+
+
+def kv_write_spec_paged(pool: PagedKV, new: torch.Tensor,
+                        block_tables: torch.Tensor, slots: tuple) -> PagedKV:
+    """Per-lane multi-token write through block tables: slot (b, j, t) of
+    :func:`spec_slots` writes ``new[b, j]`` at logical position t of lane
+    b (page ``block_tables[b, t // P]``, the page index clipped to the
+    table as the JAX package clips it); invalid slots write nothing.
+    pool (N, P, ·) layer slice; new (B, C, D)."""
+    b, j, t = (s.to(new.device) for s in slots)
+    P = pool.page_size
+    idx = (t // P).clamp(max=block_tables.shape[1] - 1)
+    pages = block_tables.long()[b, idx]
+    offs = t % P
+    if pool.fmt == "none":
+        pool.codes[pages, offs] = new[b, j].to(pool.codes.dtype)
+        return pool
+    c, s = kv_encode(new[b, j][None], pool.fmt)
+    pool.codes[pages, offs] = c[0]
+    pool.scales[pages, offs] = s[0]
     return pool
 
 

@@ -23,7 +23,8 @@ from repro_torch.kernels.packing import PackedKV, PagedKV
 from .layers import (apply_rope, attention, attention_paged, dense_init,
                      gated_mlp, kv_heads_view, kv_scatter_chunk_paged,
                      kv_write_chunk_paged, kv_write_rows, kv_write_slice,
-                     kv_write_token_paged, rms_norm)
+                     kv_write_spec, kv_write_spec_paged,
+                     kv_write_token_paged, rms_norm, spec_slots)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +230,58 @@ def attn_sublayer_chunk_paged(x, p, cfg: ArchConfig, qm: QuantMode,
     return x + out, cache_k, cache_v
 
 
+def attn_sublayer_verify(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
+                         cache_v, pos, n_valid, slots: tuple,
+                         window: int = 0):
+    """Multi-token verify attention of speculative decoding against a
+    layer-sliced contiguous cache: lane b carries C tokens (its current
+    token and C - 1 drafts) at positions ``pos[b] .. pos[b] + C - 1``; the
+    first ``n_valid[b]`` are written (``slots``, from :func:`spec_slots`)
+    and every row attends its own causal prefix, so slot j sees what a
+    decode step at ``pos[b] + j`` would see. Attention is the plain version
+    under both backends, as in the JAX package (its kernels take one query
+    row)."""
+    B, C = x.shape[0], x.shape[1]
+    dev = x.device
+    cl = torch.as_tensor(pos).long()
+    nv = torch.as_tensor(n_valid, device=cl.device).long()
+    qpos = cl.to(dev)[:, None] + torch.arange(C, device=dev)[None, :]
+    q, k, v = _qkv(x, p, cfg, qm, qpos)
+    kv_write_spec(cache_k, k, slots)
+    kv_write_spec(cache_v, v, slots)
+    out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
+                    kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
+                    causal=True, q_pos=qpos, kv_len=(cl + nv).to(dev),
+                    window=window, chunk=cfg.attn_chunk, backend=qm.backend)
+    out = qlinear(out.reshape(B, C, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
+def attn_sublayer_verify_paged(x, p, cfg: ArchConfig, qm: QuantMode,
+                               cache_k: PagedKV, cache_v: PagedKV,
+                               block_tables, pos, n_valid, slots: tuple,
+                               window: int = 0):
+    """Paged form of :func:`attn_sublayer_verify`: the valid slots write
+    through the block tables and attention reads the gathered pages (the
+    paged kernels take one query row)."""
+    B, C = x.shape[0], x.shape[1]
+    dev = x.device
+    cl = torch.as_tensor(pos).long()
+    nv = torch.as_tensor(n_valid, device=cl.device).long()
+    qpos = cl.to(dev)[:, None] + torch.arange(C, device=dev)[None, :]
+    q, k, v = _qkv(x, p, cfg, qm, qpos)
+    kv_write_spec_paged(cache_k, k, block_tables, slots)
+    kv_write_spec_paged(cache_v, v, block_tables, slots)
+    out = attention_paged(q, cache_k, cache_v, block_tables, causal=True,
+                          q_pos=qpos, kv_len=(cl + nv).to(dev),
+                          window=window, chunk=cfg.attn_chunk,
+                          backend=qm.backend)
+    out = qlinear(out.reshape(B, C, cfg.q_dim), p["wo"], p.get("bo"), qm,
+                  "attn_out")
+    return x + out, cache_k, cache_v
+
+
 def ffn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], qm, bg=p.get("bg"),
@@ -394,3 +447,51 @@ def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
         x = ffn_sublayer(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x[:, 0], params, cfg, qm), cache
+
+
+def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
+           qm: QuantMode = QuantMode.off()):
+    """Speculative verify step over the contiguous cache. inputs (B, C)
+    tokens — each lane's current token followed by C - 1 drafts; pos (B,)
+    each lane's next cache row; n_valid (B,) its real token count (1 +
+    drafts; 0 idles the lane, which then writes nothing). ``pos`` and
+    ``n_valid`` may be host tensors (no device sync). Returns (logits
+    (B, C, V), cache): logits[:, j] follows input token j, as a sequential
+    :func:`decode` of the same tokens would."""
+    x = _embed(params, inputs)
+    C = x.shape[1]
+    cl = torch.as_tensor(pos).long()
+    nv = torch.as_tensor(n_valid, device=cl.device).long()
+    slots = tuple(t.to(x.device)
+                  for t in spec_slots(cl, nv, C, cache["k"].shape[2]))
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_verify(x, p, cfg, qm, cache["k"][i],
+                                       cache["v"][i], cl, nv, slots,
+                                       window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return head_out(x, params, cfg, qm), cache
+
+
+def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
+                 block_tables, qm: QuantMode = QuantMode.off()):
+    """Speculative verify step over a paged pool — the contract of
+    :func:`verify` with rows resolved through ``block_tables`` (B, maxp).
+    The engine reserves every page a request can reach at admission, so a
+    rejected draft rolls back by rewinding the lane's position: its stale
+    rows stay masked until a later step overwrites them."""
+    x = _embed(params, inputs)
+    C = x.shape[1]
+    cl = torch.as_tensor(pos).long()
+    nv = torch.as_tensor(n_valid, device=cl.device).long()
+    slots = tuple(t.to(x.device) for t in spec_slots(cl, nv, C))
+    bt = torch.as_tensor(block_tables, device=x.device).to(torch.int32)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        x, _, _ = attn_sublayer_verify_paged(
+            x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, cl, nv, slots,
+            window=cfg.window)
+        x = ffn_sublayer(x, p, cfg, qm)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return head_out(x, params, cfg, qm), cache

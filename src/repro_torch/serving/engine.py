@@ -1,5 +1,5 @@
-"""Serving engine of the port — the greedy-decoding subset of
-``repro.serving.engine``, with its two schedulers and two KV layouts.
+"""Serving engine of the port — ``repro.serving.engine`` with its two
+schedulers, two KV layouts, seeded sampling and speculative decoding.
 
 ``scheduler='wave'`` (the default) is static batching: up to B queued
 requests are left-padded to one bucketed length, prefilled together by one
@@ -14,13 +14,25 @@ per-request block tables; page 0 is the scrap page that idle lanes park
 on; admission chain-hashes each prompt's full pages and reuses cached
 prefix pages by reference, copies a shared page before a rewrite lands in
 it, and prefills up to ``policy.max_prefill_lanes_per_step`` requests
-together). Decode is greedy, in bursts of back-to-back steps with one host
-sync per burst, with a per-lane finite-logit guard. Schedule counters and
-greedy tokens follow the JAX engine step for step.
+together). Decode runs in bursts of back-to-back steps with one host
+sync per burst, with a per-lane finite-logit guard.
 
-Waiting for later slices: sampling, speculative decoding, deadlines,
-cancel, preemption (a request the pool cannot take waits in the queue
-until pages free up), admission shedding, fault injection and the tracer.
+Tokens are greedy (argmax) unless a request carries ``Request.sampling``
+(``serving.sampling``): temperature / top-k / top-p with a replayable seed,
+token i drawn from ``fold_in(fold_in(PRNGKey(seed), i), channel)`` with
+the JAX package's threefry draws, on the device, so the port samples the
+JAX engine's tokens. Temperature 0 runs the greedy path. ``spec=SpecConfig``
+(continuous scheduler) turns on self-drafting speculative decoding: each
+engine step drafts up to k tokens per lane by prompt lookup, scores them
+in one verify forward (``api.verify`` / ``verify_paged``, C = k + 1 rows a
+lane) and emits the accepted run plus one token; a rejected draft rolls
+back by rewinding the lane's position (paged: inside the pages admission
+reserved for prompt + max_new). Schedule counters and tokens follow the
+JAX engine step for step.
+
+Waiting for later slices: deadlines, cancel, preemption (a request the
+pool cannot take waits in the queue until pages free up), admission
+shedding, fault injection and the tracer.
 """
 from __future__ import annotations
 
@@ -39,7 +51,9 @@ from repro_torch.core.quantize import KVCacheQuant, QuantMode
 from repro_torch.models import api
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.policy import (RequestQueue, RequestState,
-                                        SchedulingPolicy)
+                                        SchedulingPolicy, SpecConfig)
+from repro_torch.serving.sampling import (SamplingParams, propose_ngram,
+                                          sample_tokens, spec_accept)
 
 SCHEDULERS = ("wave", "continuous")
 KV_LAYOUTS = ("contiguous", "paged")
@@ -207,6 +221,9 @@ class Request:                         # a handle, not a value
     request_id: Optional[str] = None
     state: RequestState = RequestState.QUEUED
     error: Optional[str] = None
+    # None (or temperature <= 0) decodes greedily; else token i is drawn
+    # with the key of (seed, i), so a run is replayable
+    sampling: Optional[SamplingParams] = None
     _gen: List[int] = dataclasses.field(default_factory=list)
 
 
@@ -234,7 +251,8 @@ class Engine:
     _RUN_KEYS = ("admitted", "decode_steps", "slot_steps",
                  "useful_decode_tokens", "prefill_chunk_steps",
                  "prefill_batched_steps", "prefill_lane_steps",
-                 "prefix_hit_tokens", "blocks_evicted")
+                 "prefix_hit_tokens", "blocks_evicted",
+                 "spec_proposed_tokens", "spec_accepted_tokens")
 
     def __init__(self, params, cfg: ArchConfig, qm: QuantMode,
                  batch_size: int = 4, max_len: int = 256,
@@ -248,6 +266,7 @@ class Engine:
                  n_pages: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  policy: Optional[SchedulingPolicy] = None,
+                 spec: Optional[SpecConfig] = None,
                  device=None):
         """Arguments and defaults as in the JAX engine. bucket_prompts
         rounds prompt lengths up to the attention chunk (wave and
@@ -256,9 +275,10 @@ class Engine:
         kv_layout='paged' requires scheduler='continuous'; page_size
         defaults to the smallest multiple of attn_chunk >= 64 and must be
         a multiple of 32 and of attn_chunk; n_pages defaults to one scrap
-        page + batch_size * ceil(max_len / page_size). ``device`` is where
-        the engine runs: None means the CUDA card, and the CPU runs only
-        when asked for."""
+        page + batch_size * ceil(max_len / page_size). ``spec`` turns on
+        self-drafting speculative decoding (continuous scheduler only).
+        ``device`` is where the engine runs: None means the CUDA card, and
+        the CPU runs only when asked for."""
         self.device = devices.resolve(device)
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r} "
@@ -270,10 +290,16 @@ class Engine:
             raise ValueError(
                 "kv_layout='paged' requires scheduler='continuous'; the "
                 "wave scheduler keeps the contiguous per-wave cache")
+        if spec is not None and scheduler != "continuous":
+            raise ValueError(
+                "speculative decoding (spec=...) requires "
+                "scheduler='continuous': drafts are proposed per slot from "
+                "each request's own emitted tokens")
         if cfg.family != "dense" or not cfg.embed_inputs:
             raise ValueError(f"the port serves the dense token-embedding "
                              f"family; got {cfg.family!r}")
         self.policy = policy if policy is not None else SchedulingPolicy()
+        self.spec = spec
         self.kv_quant = KVCacheQuant.parse(kv_cache)
         if self.kv_quant is not None and cfg.kv_dim % 32 != 0:
             raise ValueError(
@@ -394,6 +420,13 @@ class Engine:
             "serving_rejected_never_fit_total",
             help="requests rejected at admission because prompt+budget "
                  "can never fit the pool")
+        self._c_spec_proposed = reg.counter(
+            "serving_spec_proposed_total", unit="tokens",
+            help="draft tokens proposed by the prompt-lookup drafter and "
+                 "scored by a verify step")
+        self._c_spec_accepted = reg.counter(
+            "serving_spec_accepted_total", unit="tokens",
+            help="proposed draft tokens accepted by the verify step")
         self._evicted_seen = 0
 
         self._queue = RequestQueue()
@@ -452,6 +485,7 @@ class Engine:
                       n_pages: Optional[int] = None,
                       metrics: Optional[MetricsRegistry] = None,
                       policy: Optional[SchedulingPolicy] = None,
+                      spec: Optional[SpecConfig] = None,
                       device=None) -> "Engine":
         """Serve an exported artifact directory: load the packed bytes
         onto ``device`` (default: the CUDA card) and build the engine —
@@ -464,7 +498,7 @@ class Engine:
                    scheduler=scheduler, eos_id=eos_id, kv_cache=kv_cache,
                    kv_layout=kv_layout, page_size=page_size,
                    n_pages=n_pages, metrics=metrics, policy=policy,
-                   device=dev)
+                   spec=spec, device=dev)
 
     # ------------------------------------------------------------------
     # Streaming API
@@ -520,7 +554,11 @@ class Engine:
             self._admit_serial(done)
         self._admit_cursor = (self._admit_cursor + 1) % self.B
         live = [i for i in range(self.B) if self._slots[i] is not None]
-        if live:
+        if live and self.spec is not None:
+            # one verify step replaces the burst: drafts depend on the
+            # tokens the previous step emitted
+            self._spec_decode_step(live, done)
+        elif live:
             self._decode_burst(live, done)
         self._sync_alloc_metrics()
         self._g_queue_depth.set(len(self._queue))
@@ -766,16 +804,49 @@ class Engine:
             self._c_chunk_steps.inc()
             self._c_prefill_lane_steps.inc()
             self._h_prefill_batch.observe(1)
-        return self._admit_paged_finish(plan, logits[0].cpu().numpy())
+        return self._admit_paged_finish(plan, logits[0])
 
-    def _admit_paged_finish(self, plan: dict, row: np.ndarray) -> tuple:
+    def _admit_paged_finish(self, plan: dict, row: torch.Tensor) -> tuple:
         """Register the prompt's full pages for prefix sharing, pin the
-        lane's page list, take the greedy first token."""
+        lane's page list, take the first token."""
         slot, s = plan["slot"], plan["s"]
         for j in range(s // self.page_size):
             self._alloc.register(plan["hashes"][j], plan["pages"][j])
         self._slot_pages[slot] = plan["pages"]
-        return s, int(row.argmax()), bool(np.isfinite(row).all())
+        return (s, *self._first_token(plan["req"], row))
+
+    def _first_token(self, req: Request, row: torch.Tensor) -> tuple:
+        """(first token, finite) from a (V,) row of admission logits.
+        Greedy requests take the host argmax; sampled ones draw on the
+        device from a (1, V) batch with emission index ``len(req._gen)``
+        — the draw depends only on (seed, index), so it is the token a
+        decode batch would draw there."""
+        host = row.cpu().numpy()
+        ok = bool(np.isfinite(host).all())
+        sp = req.sampling
+        if sp is None or sp.greedy:
+            return int(host.argmax()), ok
+        vecs = self._samp_vectors([req], [len(req._gen)])
+        return int(sample_tokens(row[None], *vecs)[0]), ok
+
+    def _samp_vectors(self, reqs: List[Optional[Request]],
+                      steps: List[int]) -> tuple:
+        """The per-lane sampling arguments (temps, top_ks, top_ps, seeds,
+        steps) on the device. ``reqs[i]`` None is an idle lane (greedy
+        no-op arguments); ``steps[i]`` the lane's next emission index."""
+        sps = [r.sampling if r is not None and r.sampling is not None
+               else SamplingParams() for r in reqs]
+        return (self._tensor(np.array([sp.temperature for sp in sps],
+                                      np.float32)),
+                self._tensor(np.array([sp.top_k for sp in sps], np.int64)),
+                self._tensor(np.array([sp.top_p for sp in sps], np.float32)),
+                self._tensor(np.array([sp.seed for sp in sps], np.int64)),
+                self._tensor(np.asarray(steps, np.int64)))
+
+    @staticmethod
+    def _any_sampled(reqs) -> bool:
+        return any(r is not None and r.sampling is not None
+                   and not r.sampling.greedy for r in reqs)
 
     def _record_admission(self, req: Request, t_a0: float,
                           t_a1: float, ok: bool) -> None:
@@ -860,7 +931,7 @@ class Engine:
         is left-padded to its bucket and run in attn_chunk-wide pieces;
         the last piece right-pads and reads the logits of the last real
         token (its pad rows stay masked until decode overwrites them).
-        Returns (bucketed prompt length, greedy first token, finite)."""
+        Returns (bucketed prompt length, first token, finite)."""
         prompt = np.asarray(req.prompt, np.int32)
         s = len(prompt)
         max_new = req.max_new - len(req._gen)
@@ -884,8 +955,7 @@ class Engine:
             self._c_prefill_lane_steps.inc()
             self._h_prefill_batch.observe(1)
         self._merge_slot(slot)
-        row = logits[0].cpu().numpy()
-        return sb, int(row.argmax()), bool(np.isfinite(row).all())
+        return (sb, *self._first_token(req, logits[0]))
 
     def _merge_slot(self, slot: int) -> None:
         """Copy the scratch cache (every layer, K and V, codes and scales)
@@ -995,8 +1065,7 @@ class Engine:
                     lane_logits[p["slot"]] = logits[p["slot"]]
         t_a1 = time.perf_counter()
         for p in plans:
-            res = self._admit_paged_finish(
-                p, lane_logits[p["slot"]].cpu().numpy())
+            res = self._admit_paged_finish(p, lane_logits[p["slot"]])
             self._record_admission(p["req"], p["t0"], t_a1, res[2])
             self._post_admission(p["slot"], p["req"], res, done)
 
@@ -1007,9 +1076,11 @@ class Engine:
     def _wave(self, reqs: List[Request]) -> List[Request]:
         """Serve ``reqs`` as one wave: left-pad every prompt to the bucketed
         longest length (pads are token 0 and are attended), prefill them
-        together into a fresh contiguous cache, then decode greedily in
-        lockstep at one shared position, with one host sync at the end and
-        a per-lane finite-logit guard."""
+        together into a fresh contiguous cache, then decode in lockstep at
+        one shared position, with one host sync at the end and a per-lane
+        finite-logit guard. A wave with a sampled request samples every
+        lane (greedy lanes take the argmax inside the sampler); an
+        all-greedy wave runs the plain argmax."""
         t0 = time.time()
         B = len(reqs)
         max_new = max(r.max_new for r in reqs)
@@ -1017,21 +1088,32 @@ class Engine:
         toks = np.zeros((B, S), np.int32)
         for i, r in enumerate(reqs):
             toks[i, S - len(r.prompt):] = r.prompt           # left-pad
+        sampled = self._any_sampled(reqs)
+        if sampled:
+            # wave requests start at emission index 0, advance in lockstep
+            *svecs, steps_d = self._samp_vectors(list(reqs), [0] * B)
         for r in reqs:
             r.state = RequestState.RUNNING
         last_logits, cache = api.prefill(self.params, self.cfg,
                                          self._tensor(toks), self.qm,
                                          max_len=self.max_len,
                                          kv_quant=self.kv_quant)
-        nxt = last_logits.argmax(dim=-1).to(torch.int32)
+
+        def pick(logits, t):
+            """The lanes' tokens of emission index t."""
+            if not sampled:
+                return logits.argmax(dim=-1).to(torch.int32)
+            return sample_tokens(logits, *svecs, steps_d + t)
+
+        nxt = pick(last_logits, 0)
         toks_dev = [nxt]
         oks_dev = [torch.isfinite(last_logits).all(dim=-1)]
         pos = S
-        for _ in range(max_new - 1):
+        for t in range(1, max_new):
             logits, cache = api.decode(self.params, self.cfg, cache, nxt,
                                        pos, self.qm)
             oks_dev.append(torch.isfinite(logits).all(dim=-1))
-            nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt = pick(logits, t)
             toks_dev.append(nxt)
             pos += 1
         host = torch.stack(toks_dev, dim=1).cpu().numpy()   # one sync
@@ -1069,7 +1151,9 @@ class Engine:
         With no eos_id every lane runs exactly ``remaining`` more steps,
         so all steps up to the next lane completion are dispatched
         back-to-back, the sampled tokens fed straight back on the device,
-        with one host sync for the whole burst."""
+        with one host sync for the whole burst. With a sampled lane live,
+        every lane samples (idle and greedy lanes take the argmax); an
+        all-greedy burst runs the plain argmax."""
         burst = 1 if self.eos_id is not None else min(
             self._slots[i].remaining for i in live)
         cur = np.zeros(self.B, np.int32)
@@ -1080,6 +1164,13 @@ class Engine:
         cur_d, pos_d = self._tensor(cur), self._tensor(pos)
         paged = self.kv_layout == "paged"
         tables_d = self._tables_committed() if paged else None
+        lanes = [sl.req if sl is not None else None for sl in self._slots]
+        sampled = self._any_sampled(lanes)
+        if sampled:
+            # a lane's next emission index is the count of its tokens
+            *svecs, steps_d = self._samp_vectors(
+                lanes, [len(sl.toks) if sl is not None else 0
+                        for sl in self._slots])
         toks_dev, oks_dev = [], []
         for _ in range(burst):
             if paged:
@@ -1091,7 +1182,11 @@ class Engine:
                     self.params, self.cfg, self._cache, cur_d, pos_d,
                     self.qm)
             oks_dev.append(torch.isfinite(logits).all(dim=-1))
-            cur_d = logits.argmax(dim=-1).to(torch.int32)
+            if sampled:
+                cur_d = sample_tokens(logits, *svecs, steps_d)
+                steps_d = steps_d + 1
+            else:
+                cur_d = logits.argmax(dim=-1).to(torch.int32)
             toks_dev.append(cur_d)
             pos_d = pos_d + 1
             self._c_decode_steps.inc()
@@ -1113,16 +1208,111 @@ class Engine:
                     done.append(sl.req)
                     continue
                 tok = int(host[i, step])
-                sl.toks.append(tok)
-                sl.pos += 1
+                self._emit(sl, tok)
                 sl.remaining -= 1
-                if sl.req.on_token is not None:
-                    sl.req.on_token(tok)
                 if sl.remaining == 0 or tok == self.eos_id:
                     self._finish(sl.req, sl.toks)
                     done.append(sl.req)
                     self._slots[i] = None
                     self._release_lane(i)
+
+    def _spec_decode_step(self, live: List[int], done: List[Request]) -> None:
+        """One speculative step over every lane. The host drafts up to
+        ``spec.k`` tokens per live lane by prompt lookup over its prompt and
+        emitted tokens, capped at ``remaining - 1`` so the emitted run never
+        overruns the budget (nor the rows or pages admission reserved); one
+        verify forward scores current token + drafts, and ``spec_accept``
+        picks the accepted run plus one token, with one host sync. Rollback
+        is a position rewind: ``pos`` advances by the emitted count only,
+        and the rejected slots' rows stay masked until a later step
+        overwrites them. Idle lanes verify nothing (``n_valid`` 0)."""
+        K = self.spec.k
+        C = K + 1
+        toks = np.zeros((self.B, C), np.int32)
+        pos = np.zeros(self.B, np.int64)
+        n_valid = np.zeros(self.B, np.int64)
+        steps = [0] * self.B
+        n_prop = 0
+        for i in live:
+            sl = self._slots[i]
+            ctx = np.concatenate([np.asarray(sl.req.prompt, np.int64),
+                                  np.asarray(sl.toks, np.int64)])
+            d = propose_ngram(ctx, K, self.spec.ngram_max,
+                              self.spec.ngram_min)
+            dn = max(0, min(len(d), sl.remaining - 1))
+            toks[i, 0] = sl.toks[-1]
+            toks[i, 1:1 + dn] = d[:dn]
+            pos[i] = sl.pos
+            n_valid[i] = dn + 1
+            steps[i] = len(sl.toks)
+            n_prop += dn
+        self._c_spec_proposed.inc(n_prop)
+        *svecs, steps_d = self._samp_vectors(
+            [sl.req if sl is not None else None for sl in self._slots],
+            steps)
+        toks_d = self._tensor(toks)
+        # pos / n_valid stay host tensors: the verify forward derives its
+        # write slots from them without a device sync
+        pos_h, nv_h = torch.from_numpy(pos), torch.from_numpy(n_valid)
+        if self.kv_layout == "paged":
+            logits, self._cache = api.verify_paged(
+                self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
+                self._tables_committed(), self.qm)
+        else:
+            logits, self._cache = api.verify(
+                self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
+                self.qm)
+        out, n_emit, okrow = spec_accept(
+            logits, toks_d[:, 1:], self._tensor(n_valid - 1), *svecs,
+            steps_d)
+        res = torch.cat([out, n_emit[:, None], okrow.to(torch.int32)],
+                        dim=1).cpu().numpy()                  # one sync
+        self._c_decode_steps.inc()
+        self._c_slot_steps.inc(self.B)
+        for i in live:
+            sl = self._slots[i]
+            n = int(res[i, C])
+            self._c_spec_accepted.inc(n - 1)
+            row = res[i, :C]
+            bad = np.flatnonzero(res[i, C + 1:C + 1 + n] == 0)
+            if bad.size:
+                # the lane keeps the tokens before its first non-finite
+                # slot, then fails alone
+                k0 = int(bad[0])
+                for t in row[:k0]:
+                    self._emit(sl, int(t))
+                self._c_nan.inc()
+                self._slots[i] = None
+                self._release_lane(i)
+                self._finish(sl.req, sl.toks, state=RequestState.FAILED,
+                             error=f"non-finite logits in lane {i} at "
+                                   f"verify position {sl.pos}")
+                done.append(sl.req)
+                continue
+            emitted = row[:n]
+            if self.eos_id is not None:
+                hits = np.flatnonzero(emitted == self.eos_id)
+                if hits.size:
+                    # stop at (and include) the first EOS; later accepted
+                    # drafts are dropped with the lane
+                    emitted = emitted[:int(hits[0]) + 1]
+            for t in emitted:
+                self._emit(sl, int(t))
+            sl.remaining -= len(emitted)
+            if sl.remaining == 0 or int(emitted[-1]) == self.eos_id:
+                self._finish(sl.req, sl.toks)
+                done.append(sl.req)
+                self._slots[i] = None
+                self._release_lane(i)
+
+    @staticmethod
+    def _emit(sl: _Slot, tok: int) -> None:
+        """Append ``tok`` to the lane's tokens, advance its position and
+        stream it."""
+        sl.toks.append(tok)
+        sl.pos += 1
+        if sl.req.on_token is not None:
+            sl.req.on_token(tok)
 
     # ------------------------------------------------------------------
     # Accounting
@@ -1138,7 +1328,14 @@ class Engine:
                 "prefill_batched_steps": int(self._c_prefill_batched.value),
                 "prefill_lane_steps": int(self._c_prefill_lane_steps.value),
                 "prefix_hit_tokens": self.prefix_hit_tokens,
-                "blocks_evicted": int(self._c_evicted.value)}
+                "blocks_evicted": int(self._c_evicted.value),
+                "spec_proposed_tokens": int(self._c_spec_proposed.value),
+                "spec_accepted_tokens": int(self._c_spec_accepted.value)}
+
+    @staticmethod
+    def _acceptance(c: dict) -> float:
+        return (c["spec_accepted_tokens"] / c["spec_proposed_tokens"]
+                if c["spec_proposed_tokens"] else 0.0)
 
     @staticmethod
     def _quantiles(h) -> dict:
@@ -1163,6 +1360,7 @@ class Engine:
                 "prefill_lanes_per_step": (
                     cum["prefill_lane_steps"]
                     / max(cum["prefill_chunk_steps"], 1)),
+                "spec_acceptance": self._acceptance(cum),
                 "blocks_in_use": (self._alloc.in_use if self._alloc
                                   else 0),
                 "ttft_p50": ttft["p50"], "ttft_p99": ttft["p99"],
@@ -1199,14 +1397,19 @@ class Engine:
         return total * live // self._alloc.n_pages
 
     def throughput(self, n_requests: int = 8, prompt_len: int = 32,
-                   max_new: int = 32, seed: int = 0) -> dict:
-        """Tokens/second over a synthetic request wave (greedy), plus the
-        schedule counters of this run. Host clock around work that ends in
-        a device sync (the decode burst's token fetch)."""
+                   max_new: int = 32, seed: int = 0,
+                   sampling: Optional[SamplingParams] = None) -> dict:
+        """Tokens/second over a synthetic request wave, plus the schedule
+        counters of this run. ``sampling`` (None: greedy) applies to every
+        request, request i with seed ``sampling.seed + i``. Host clock
+        around work that ends in a device sync (the token fetch)."""
         rng = np.random.default_rng(seed)
         reqs = [Request(prompt=rng.integers(
             0, self.cfg.vocab_size, prompt_len).astype(np.int32),
-            max_new=max_new) for _ in range(n_requests)]
+            max_new=max_new,
+            sampling=(dataclasses.replace(sampling, seed=sampling.seed + i)
+                      if sampling is not None else None))
+            for i in range(n_requests)]
         before = self.stats()
         t0 = time.perf_counter()
         done = self.generate(reqs)
@@ -1220,5 +1423,6 @@ class Engine:
         run["decode_utilization"] = (
             run["useful_decode_tokens"] / run["slot_steps"]
             if run["slot_steps"] else 0.0)
+        run["spec_acceptance"] = self._acceptance(run)
         return {"tokens": toks, "seconds": dt,
                 "tok_per_s": toks / dt if dt > 0 else float("inf"), **run}

@@ -14,6 +14,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.artifacts import export_artifact as j_export
 from repro.configs.base import ArchConfig as JArch
@@ -22,6 +23,10 @@ from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.engine import Request as TRequest
+
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CKPT = ROOT / "experiments" / "bench_model" / "step_00000250" / "arrays.npz"

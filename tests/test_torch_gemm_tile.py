@@ -36,6 +36,10 @@ from repro_torch.core import transforms as tfm
 from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 MX_FMTS = ("mxfp4", "mxint4", "mxfp6", "mxfp8", "mxint8")
 TOL = 1e-5          # of max |y|, argued in the module docstring
 

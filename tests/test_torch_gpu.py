@@ -447,3 +447,131 @@ def test_cuda_prefill_refuses_heads_wider_than_128(cuda_device):
     with pytest.raises(RuntimeError):
         tops.mx_flash_prefill(torch.randn(1, 8, 2, 256, device=dev), x, x,
                               kc, ks, kc, ks, bt, st, st + 8)
+
+
+# ---------------------------------------------------------------------------
+# Sampling and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_threefry_on_the_card_equals_the_cpu(cuda_device):
+    """Keys, random bits and uniforms of 4096 (seed, step, channel)
+    triples: bitwise the CPU's integers."""
+    from repro_torch.serving import sampling
+    g = torch.Generator().manual_seed(3)
+    trip = (torch.randint(0, 2 ** 32, (4096,), generator=g),
+            torch.randint(0, 1 << 20, (4096,), generator=g),
+            torch.randint(0, 2, (4096,), generator=g))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        k = sampling._key(*(t.to(dev) for t in trip))
+        out[str(dev)] = (k[0], k[1], sampling.random_bits(k, 100),
+                         sampling.uniform(k).view(torch.int32))
+    for a, b in zip(out[str(cuda_device)], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp,top_k,top_p", ((1.0, 0, 1.0), (0.8, 50, 0.95),
+                                              (0.6, 0, 0.5)))
+def test_sample_tokens_on_the_card_equal_the_cpu(cuda_device, temp, top_k,
+                                                 top_p):
+    """sample_tokens over 256 lanes of a 4096-token vocabulary (one lane
+    greedy): the card draws the CPU's tokens; the two ``log``s may part by
+    an ulp, so the gumbel noise is also held within 4 ulps of 16."""
+    from repro_torch.serving import sampling
+    g = torch.Generator().manual_seed(4)
+    B, V = 256, 4096
+    lg = torch.randn(B, V, generator=g) * 3.0
+    temps = torch.full((B,), temp)
+    temps[1] = 0.0
+    args = (temps, torch.full((B,), top_k), torch.full((B,), top_p),
+            torch.randint(0, 2 ** 31, (B,), generator=g),
+            torch.randint(0, 4096, (B,), generator=g))
+    cpu = sampling.sample_tokens(lg, *args)
+    card = sampling.sample_tokens(lg.to(cuda_device),
+                                  *(a.to(cuda_device) for a in args))
+    assert torch.equal(card.cpu(), cpu)
+    key = sampling.prng_key(args[3])
+    noise = sampling.gumbel(key, V)
+    noise_card = sampling.gumbel(tuple(t.to(cuda_device) for t in key), V)
+    assert (noise_card.cpu() - noise).abs().max() <= 4 * 2.0 ** -20
+
+
+def _small_mx_model(dev, path):
+    """A 4-layer model of Qwen2-0.5B's head layout (14 heads over 2 KV
+    heads of 64) at d_model 896, random weights, RTN mxfp4 with T3,
+    exported to ``path`` and loaded packed, as the engine serves it."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.core import ptq
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"), n_layers=4,
+                              d_ff=1024, vocab_size=4096, attn_chunk=128)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = ptq.apply_method("rtn", transformer.init(gen, cfg, device=dev),
+                           cfg, fmt="mxfp4")
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    export_artifact(res, cfg, path)
+    params, _, qm = load_artifact(path, device=dev)
+    return params, cfg, qm.with_backend("fused")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("contiguous", "paged"))
+@pytest.mark.parametrize("k", (3, 4))
+def test_verify_against_sequential_decode(cuda_device, tmp_path, k,
+                                          layout):
+    """Teacher-forced, fused: four lanes' prompts prefilled, then the same
+    k + 1 tokens per lane through k + 1 decode steps and through one verify
+    step (the packed GEMM at M = 16 or 20, one launch per linear): logits
+    within 1e-2 of max |logit|."""
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    dev = cuda_device
+    params, cfg, qm = _small_mx_model(dev, tmp_path / "art")
+    kvq = KVCacheQuant.parse("mxfp8")
+    B, S, C = 4, 100, cfg.attn_chunk
+    g = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (B, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    forced = torch.randint(0, cfg.vocab_size, (B, k + 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    bt = torch.arange(1, B + 1, dtype=torch.int32, device=dev)[:, None]
+
+    def prefilled():
+        if layout == "paged":
+            cache = tr.init_cache_paged(cfg, B + 1, 128, kv_quant=kvq,
+                                        device=dev)
+            return tr.prefill_chunk_paged(
+                params, cfg, cache, bt, toks, 0,
+                torch.full((B,), S - 1, device=dev), qm)[1]
+        cache = tr.init_cache(cfg, B, 256, kv_quant=kvq, device=dev)
+        return tr.prefill_chunk(params, cfg, cache, toks, 0, S - 1, qm)[1]
+
+    cache = prefilled()
+    seq = []
+    for j in range(k + 1):
+        p = (pos + j).to(dev)
+        if layout == "paged":
+            lg, cache = tr.decode_paged(params, cfg, cache, forced[:, j], p,
+                                        bt, qm)
+        else:
+            lg, cache = tr.decode(params, cfg, cache, forced[:, j], p, qm)
+        seq.append(lg)
+    seq = torch.stack(seq, dim=1)
+    cache = prefilled()
+    nv = torch.full((B,), k + 1, dtype=torch.int32)
+    ops.reset_launches()
+    if layout == "paged":
+        ver, _ = tr.verify_paged(params, cfg, cache, forced, pos, nv, bt, qm)
+    else:
+        ver, _ = tr.verify(params, cfg, cache, forced, pos, nv, qm)
+    assert ops.launches["mx_gemm_packed"] == 7 * cfg.n_layers
+    assert ops.launches["mx_flash_decode"] == 0
+    assert ops.launches["mx_flash_decode_paged"] == 0
+    assert (ver - seq).abs().max() <= 1e-2 * seq.abs().max()

@@ -16,6 +16,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

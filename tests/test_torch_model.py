@@ -38,6 +38,10 @@ from repro_torch.kernels.packing import PackedWeight as TPW
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CKPT = ROOT / "experiments" / "bench_model" / "step_00000250" / "arrays.npz"
 BENCH = dict(name="bench-llama", family="dense", n_layers=4, d_model=128,
@@ -210,8 +214,21 @@ def test_contiguous_prefill_decode_match_jax(bench, kv, backend):
         _close(a, b, 1e-4)
 
 
+@pytest.fixture(scope="module")
+def port_artifact_logits(jax_artifact):
+    """The port's contiguous run of the mxfp4 artifact on seed 4 with an
+    mxfp8 cache, under each backend: computed once for both cases of the
+    test below."""
+    tp, _, tqm = load_artifact(jax_artifact, device="cpu")
+    toks = _tokens(4, (2, 128))
+    return {b: _contiguous_run(ttf, tp, TCFG, tqm.with_backend(b),
+                               TKV("mxfp8"), toks, torch.from_numpy)
+            for b in ("ref", "fused")}
+
+
 @pytest.mark.parametrize("backend", ("ref", "fused"))
-def test_contiguous_artifact_matches_jax(jax_artifact, backend):
+def test_contiguous_artifact_matches_jax(jax_artifact, port_artifact_logits,
+                                         backend):
     """The mxfp4 artifact (weights, activations, T3) over the contiguous
     cache, the same backend on both sides: within 1e-2 of max |logit| of
     the JAX package, the bar of the paged path, with a dense cache and
@@ -230,13 +247,9 @@ def test_contiguous_artifact_matches_jax(jax_artifact, backend):
                              kv and TKV(kv), toks, torch.from_numpy)
         for a, b in zip(lt, lj):
             _close(a, b, 1e-2)
-    toks = _tokens(4, (2, 128))
-    lt = _contiguous_run(ttf, tp, TCFG, tqm.with_backend(backend),
-                         TKV("mxfp8"), toks, torch.from_numpy)
     other = "ref" if backend == "fused" else "fused"
-    lo = _contiguous_run(ttf, tp, TCFG, tqm.with_backend(other),
-                         TKV("mxfp8"), toks, torch.from_numpy)
-    for a, b in zip(lt, lo):
+    for a, b in zip(port_artifact_logits[backend],
+                    port_artifact_logits[other]):
         np.testing.assert_array_equal(a, b)
 
 

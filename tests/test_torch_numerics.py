@@ -11,6 +11,10 @@ from repro.kernels import packing as jpk
 from repro_torch.core import mx as tmx
 from repro_torch.kernels import packing as tpk
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 FMTS = ("mxfp4", "mxint4", "mxfp8", "mxint8", "mxfp6")
 
 # k in [-20, 20) where the JAX package's block exponent (its E8M0 byte)

@@ -46,6 +46,10 @@ from repro_torch.core import mx as mxlib
 from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 KV_FMTS = ("mxfp8", "mxint8", "mxfp4", "mxint4")
 TOL = 1e-6          # of max |out|, argued in the module docstring
 # Heads of 128: each score sums twice the products, in six partial sums (3

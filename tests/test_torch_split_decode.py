@@ -17,6 +17,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import packing as tpk
 from repro_torch.kernels import ref as tref
 
+# one PyTorch thread per process: the suite runs in several worker
+# processes at once, and a thread per core in each starves them all
+torch.set_num_threads(1)
+
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 NEG_INF = -1e30
 TILE = tops.DECODE_TILE
