@@ -48,7 +48,14 @@ Phases, in order (each raises on failure; nothing is caught):
    its top-2 margin, acceptance, tok/s, GEMM launches per verify step),
    the verify logits against a sequential decode of the same tokens
    (bar: 1e-2 of max |logit|), and the packed GEMM timed at M = 16 and
-   20 (run beside phase 2, while the profiler records every event).
+   20 (run beside phase 2, while the profiler records every event);
+6. the port's HTTP/SSE server (``repro_torch.serving.server``) in-process
+   on 127.0.0.1 over phase 3's paged Qwen2-0.5B engine, driven over stdlib
+   sockets and SSE: streamed tokens, priority preemption and resume,
+   a disconnect-cancel, both deadlines, the ``nan_logits`` and
+   ``failed_step`` faults, shedding with Retry-After, clean drain reports
+   and a trace that validates (:func:`http_server_phase`); the paged
+   kernels' launch counts in the ``kernels`` line are this phase's.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -58,6 +65,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import pathlib
 import subprocess
@@ -448,7 +456,7 @@ def _prefill_pages(torch, dev, gen, P, maxp, H=14, kvh=2, Dh=64):
                  "shape": f"B={B} C={C} H={H} kvh={kvh} Dh={Dh} P={P} "
                           f"q_start={starts} {fmt}",
                  "max_abs_err": err, **t, "bound_ms": b, "bound_by": by,
-                 "path": "paged" if Dh == 64 else "paged_qwen2_7b"}
+                 "path": "server" if Dh == 64 else "paged_qwen2_7b"}
     return entry
 
 
@@ -1366,6 +1374,7 @@ def sampling_and_spec(torch, dev, seed, card, params, cfg, qm, prompts,
                                      f"max |logit| from sequential decode")
 
     log(f"phase 5: {time.perf_counter() - t_start:.1f} s")
+    return runs[0]
 
 
 def verify_gemm_times(torch, dev, seed: int) -> None:
@@ -1377,6 +1386,428 @@ def verify_gemm_times(torch, dev, seed: int) -> None:
         for K, N, t3 in ((896, 4864, False), (4864, 896, True)):
             log(f"phase 5 (f): the verify GEMM at M = {M}")
             gemm_case(torch, dev, gen, M, K, N, t3)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the HTTP/SSE server over the paged engine
+# ---------------------------------------------------------------------------
+
+IO_S = 120.0              # bound on one HTTP exchange or one sub-check
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)   # phase 5 (c)
+
+
+async def _send(asyncio, port, method, path, body=None):
+    """Open a connection and send one request; returns (reader, writer)."""
+    r, w = await asyncio.wait_for(
+        asyncio.open_connection("127.0.0.1", port), IO_S)
+    data = b"" if body is None else json.dumps(body).encode()
+    w.write((f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+             f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
+    await w.drain()
+    return r, w
+
+
+async def _receive(asyncio, r, w, first=None):
+    """Read a response to EOF (setting ``first`` at the first SSE token
+    event); returns (code, headers, body, perf_counter at EOF)."""
+    raw = b""
+    try:
+        while True:
+            chunk = await asyncio.wait_for(r.read(65536), IO_S)
+            if not chunk:
+                break
+            raw += chunk
+            if first is not None and b"event: token" in raw:
+                first.set()
+    finally:
+        w.close()
+    t_eof = time.perf_counter()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    headers = dict(line.decode().split(": ", 1)
+                   for line in head.split(b"\r\n")[1:] if b": " in line)
+    return (int(head.split()[1]), {k.lower(): v for k, v in headers.items()},
+            body, t_eof)
+
+
+async def _generate(asyncio, port, prompt, max_new, stream=False,
+                    first=None, **fields):
+    """POST /v1/generate. Streamed: (code, tokens from the token events,
+    the done event's data or None, perf_counter at EOF); else (code,
+    headers, the JSON result)."""
+    r, w = await _send(asyncio, port, "POST", "/v1/generate",
+                       {"prompt": [int(t) for t in prompt],
+                        "max_new": max_new, "stream": stream, **fields})
+    code, headers, body, t_eof = await _receive(asyncio, r, w, first)
+    if not stream:
+        return code, headers, json.loads(body) if body else {}
+    toks, done, event = [], None, None
+    for line in body.decode().split("\n"):
+        if line.startswith("event:"):
+            event = line[6:].strip()
+        elif line.startswith("data:"):
+            data = json.loads(line[5:])
+            if event == "token":
+                toks.extend(data["tokens"])
+            elif event == "done":
+                done = data
+    return code, toks, done, t_eof
+
+
+def _equal(label, got, want) -> None:
+    """Tokens of each request against its uninterrupted run."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = [int(t) for t in a], [int(t) for t in b]
+        if a != b:
+            raise AssertionError(f"phase 6 {label}: request {i} gave {a} "
+                                 f"against {b}")
+
+
+def http_server_phase(torch, dev, seed, card, served, sampled_ref):
+    """Phase 6: the port's ``Server`` on 127.0.0.1 (port 0, in-process,
+    an ``EngineSupervisor`` on its worker thread) over phase 3's Qwen2-0.5B
+    artifact (fused, mxfp8 KV, continuous scheduler, paged, 4 lanes),
+    spoken to over stdlib sockets and SSE; one server per check, in turn,
+    all with one tracer. Checks (each a hard failure): (a) the four phase-3
+    requests streamed give phase 3's greedy tokens; (b) a priority-1
+    arrival over four busy priority-0 lanes preempts exactly one, which
+    resumes mid-flight with its uninterrupted tokens, greedy and sampled,
+    its emitted tokens replayed through the decode kernels; (c) a client dropped by the ``disconnect`` fault point is
+    cancelled within one engine step, its pages released, the other
+    lanes' tokens unchanged; (d) an end-to-end deadline ends a decoding
+    request TIMED_OUT, a TTFT deadline a queued one without a prefill;
+    (e) ``nan_logits`` on one lane fails that request alone,
+    ``failed_step`` fails the blamed lane and the requeued bystanders
+    resume with their uninterrupted tokens; (f) past ``max_queue_depth`` requests get 429
+    with a Retry-After that grows with consecutive sheds; (g) every drain
+    report is clean (``sum(terminal) == submitted``, one terminal state a
+    request, no page in use); (h) the trace validates. Returns the launch
+    counts of the phase."""
+    import asyncio
+
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, validate_trace
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.policy import SchedulingPolicy
+    from repro_torch.serving.server import Server, ServerConfig
+
+    params, cfg = served["params"], served["cfg"]
+    fused = served["qm"].with_backend("fused")
+    prompts, greedy = served["prompts"], served["greedy"]["paged"]
+    kv_quant = KVCacheQuant.parse("mxfp8")
+    tracer = Tracer()
+    reports = []
+    handles = {}
+    t_start = time.perf_counter()
+    log(f"phase 6 on {card}")
+
+    def resumed_equal(label, outs, want):
+        """``outs``: (request id, tokens) of requests that may have been
+        resumed; each must give its uninterrupted tokens ``want``, bit for
+        bit. Returns, for each one that was preempted or requeued, the
+        tokens it had emitted then (counted from its token times against
+        the instant): what its re-admission replays."""
+        emitted = []
+        for (rid, got), w in zip(outs, want):
+            _equal(f"{label}, {rid}", [got], [w])
+            req, times = handles[rid]
+            tid = tracer._tracks[req.trace_track]
+            ev = [e for e in tracer.events() if e["tid"] == tid
+                  and e["name"] in ("preempt", "requeue")]
+            if ev:
+                t_ev = ev[0]["ts"] / 1e6 + tracer._epoch
+                emitted.append(sum(1 for x in times if x < t_ev))
+        return emitted
+
+    async def serving(check, policy=None, faults=None, server_kw=None):
+        """One server over a fresh engine: run ``check(srv)``, shut down,
+        hold the drain report to (g); returns (check's result, the
+        engine's stats, the report). Each submitted request's handle and
+        the perf_counter of each token it emits (on the worker thread)
+        land in ``handles`` by request id."""
+        eng = Engine(params, cfg, fused, batch_size=4, max_len=2048,
+                     kv_cache="mxfp8", scheduler="continuous",
+                     kv_layout="paged", tracer=tracer, faults=faults,
+                     policy=policy, device=dev)
+        srv = Server(eng, ServerConfig(port=0, **(server_kw or {})),
+                     faults=faults)
+        submit = srv.sup.submit
+
+        def recording_submit(req, on_done=None):
+            times, stream = [], req.on_token
+
+            def on_token(tok):
+                times.append(time.perf_counter())
+                if stream is not None:
+                    stream(tok)
+            req.on_token = on_token
+            submit(req, on_done)
+            handles[req.request_id] = (req, times)
+            return req
+        srv.sup.submit = recording_submit
+        await asyncio.wait_for(srv.start(), IO_S)
+        try:
+            out = await asyncio.wait_for(check(srv), IO_S)
+            rep = await asyncio.wait_for(srv.shutdown(), IO_S)
+        finally:
+            srv.sup.stop(timeout_s=30.0)     # a no-op after shutdown()
+        if srv.sup._thread.is_alive():
+            raise AssertionError("phase 6: the supervisor did not stop")
+        if not (rep["clean"] and rep["all_terminal"]
+                and rep["allocator"]["in_use"] == 0):
+            raise AssertionError(f"phase 6 (g): drain report not clean: "
+                                 f"{rep}")
+        reports.append(rep)
+        return out, eng.stats(), rep
+
+    def run(coro):
+        return asyncio.run(asyncio.wait_for(coro, 4 * IO_S))
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+
+    # (a) the four phase-3 requests, streamed
+    async def stream4(srv):
+        return await asyncio.gather(*[
+            _generate(asyncio, srv.port, p, 32, stream=True)
+            for p in prompts])
+    outs, st, _ = run(serving(stream4))
+    if any(o[0] != 200 or o[2]["state"] != "finished" for o in outs):
+        raise AssertionError(f"phase 6 (a): {[o[2] for o in outs]}")
+    _equal("(a)", [o[1] for o in outs], greedy)
+    log(f"phase 6 (a): 4 streamed requests equal phase 3's greedy tokens "
+        f"({time.perf_counter() - t0:.2f} s wall on {card}; "
+        f"{st['prefix_hit_tokens']} prefix-hit tokens)")
+
+    # (b) priority preemption with resume, greedy and sampled
+    hi_prompt = np.random.default_rng(seed + 6).integers(
+        0, cfg.vocab_size, 200).astype(np.int32)
+    for kind, want in (("greedy", greedy), ("sampled", sampled_ref)):
+        async def preempt(srv, kind=kind):
+            firsts = [asyncio.Event() for _ in prompts]
+            lo = [asyncio.ensure_future(_generate(
+                asyncio, srv.port, p, 32, stream=True, first=firsts[i],
+                deadline_ms=1e9,
+                **(dict(SAMPLED, seed=i) if kind == "sampled" else {})))
+                for i, p in enumerate(prompts)]
+            await asyncio.wait_for(
+                asyncio.gather(*[f.wait() for f in firsts]), IO_S)
+            hi = await _generate(asyncio, srv.port, hi_prompt, 8,
+                                 priority=1)
+            return await asyncio.gather(*lo), hi
+        t0 = time.perf_counter()
+        (lo, hi), st, _ = run(serving(preempt))
+        if hi[0] != 200 or hi[2]["state"] != "finished" or any(
+                o[2]["state"] != "finished" for o in lo):
+            raise AssertionError(f"phase 6 (b) {kind}: {hi}, "
+                                 f"{[o[2] for o in lo]}")
+        g = resumed_equal(f"(b) {kind}",
+                          [(o[2]["request_id"], o[1]) for o in lo], want)
+        if (st["preemptions"] != 1 or len(g) != 1 or g[0] < 1
+                or st["resume_replay_steps"] != g[0]):
+            raise AssertionError(f"phase 6 (b) {kind}: {st['preemptions']} "
+                                 f"preemptions, {g} tokens emitted before "
+                                 f"them, {st['resume_replay_steps']} replay "
+                                 f"steps")
+        log(f"phase 6 (b) {kind}: a priority-1 arrival over 4 busy lanes: "
+            f"1 preemption after {g[0]} tokens, {g[0]} replay steps, "
+            f"{st['admitted']} admissions for 5 requests; the 4 priority-0 "
+            f"requests equal their uninterrupted tokens "
+            f"({time.perf_counter() - t0:.2f} s wall on {card})")
+
+    # (c) a client dropped mid-stream by the disconnect fault point; the
+    # bystanders are not streamed, so only the victim's flushes count
+    fi = FaultInjector(seed=seed).inject("disconnect", at=2)
+
+    async def disconnect(srv):
+        by = [asyncio.ensure_future(_generate(asyncio, srv.port, p, 32,
+                                              deadline_ms=1e9))
+              for p in prompts[:3]]
+        victim = await _generate(asyncio, srv.port, prompts[3], 400,
+                                 stream=True, deadline_ms=1e9)
+        return await asyncio.gather(*by), victim
+    t0 = time.perf_counter()
+    (by, victim), st, rep = run(serving(disconnect, faults=fi))
+    _, vtoks, vdone, t_drop = victim
+    if fi.fired("disconnect") != 1 or vdone is not None:
+        raise AssertionError("phase 6 (c): the stream was not dropped")
+    if st["terminal"]["cancelled"] != 1:
+        raise AssertionError(f"phase 6 (c): {st['terminal']}")
+    _equal("(c) bystanders", [o[2]["tokens"] for o in by], greedy[:3])
+    cancel = [e for e in tracer.events() if e["name"] == "cancel"]
+    t_cancel = (cancel[-1]["ts"] / 1e6) + tracer._epoch
+    steps = sum(1 for e in tracer.events() if e["name"] == "engine_step"
+                and t_drop < e["ts"] / 1e6 + tracer._epoch < t_cancel)
+    if len(cancel) != 1 or steps > 1:
+        raise AssertionError(f"phase 6 (c): {len(cancel)} cancels, "
+                             f"{steps} engine steps began between the "
+                             f"drop and the cancel")
+    log(f"phase 6 (c): the victim dropped after {len(vtoks)} tokens, "
+        f"cancelled {1e3 * (t_cancel - t_drop):.1f} ms after the client "
+        f"saw the drop, {steps} engine steps begun in between; pages in "
+        f"use at quiescence {rep['allocator']['in_use']}; 3 bystanders "
+        f"equal their uninterrupted tokens "
+        f"({time.perf_counter() - t0:.2f} s wall on {card})")
+
+    # (d) deadlines: end-to-end while decoding, TTFT while queued
+    async def deadlines(srv):
+        firsts = [asyncio.Event() for _ in range(4)]
+        busy = [asyncio.ensure_future(_generate(
+            asyncio, srv.port, p, n, stream=True, first=f, **kw))
+            for p, n, f, kw in zip(
+                prompts, (64, 64, 64, 1500), firsts,
+                ({"deadline_ms": 1e9},) * 3 + ({"deadline_ms": 1500.0},))]
+        await asyncio.wait_for(
+            asyncio.gather(*[f.wait() for f in firsts]), IO_S)
+        queued = await _generate(asyncio, srv.port, prompts[2], 8,
+                                 ttft_deadline_ms=100.0)
+        return await asyncio.gather(*busy), queued
+    t0 = time.perf_counter()
+    n_prefill = sum(1 for e in tracer.events() if e["name"] == "prefill")
+    (busy, queued), st, _ = run(serving(deadlines))
+    late = busy[3][2]
+    if not (late["state"] == "timed_out" and "while decoding"
+            in late["error"] and 0 < late["n_tokens"] < 1500):
+        raise AssertionError(f"phase 6 (d) end to end: {late}")
+    q = queued[2]
+    prefills = sum(1 for e in tracer.events()
+                   if e["name"] == "prefill") - n_prefill
+    if not (queued[0] == 504 and q["state"] == "timed_out"
+            and "TTFT deadline" in q["error"] and "while queued"
+            in q["error"] and q["n_tokens"] == 0 and prefills == 4):
+        raise AssertionError(f"phase 6 (d) TTFT: {queued}, {prefills} "
+                             f"prefills for 5 requests")
+    _equal("(d) neighbours", [o[1][:32] for o in busy[:3]], greedy[:3])
+    log(f"phase 6 (d): end-to-end deadline 1500 ms: TIMED_OUT while "
+        f"decoding after {late['n_tokens']} tokens; TTFT deadline 100 ms: "
+        f"TIMED_OUT while queued, 0 tokens, no prefill "
+        f"({time.perf_counter() - t0:.2f} s wall on {card})")
+
+    # (e) faults in a step
+    fi = FaultInjector(seed=seed).inject("nan_logits", at=10, lane=1)
+
+    async def four(srv):
+        return await asyncio.gather(*[
+            _generate(asyncio, srv.port, p, 32, deadline_ms=1e9)
+            for p in prompts])
+    t0 = time.perf_counter()
+    outs, st, _ = run(serving(four, faults=fi))
+    failed = [i for i, o in enumerate(outs) if o[2]["state"] != "finished"]
+    if (fi.fired("nan_logits") != 1 or len(failed) != 1
+            or outs[failed[0]][2]["state"] != "failed"
+            or "non-finite logits" not in outs[failed[0]][2]["error"]
+            or st["nan_guard_trips"] != 1):
+        raise AssertionError(f"phase 6 (e) nan_logits: "
+                             f"{[o[2]['state'] for o in outs]}")
+    i = failed[0]
+    got = outs[i][2]["tokens"]
+    _equal("(e) nan_logits, the failed lane's prefix", [got],
+           [greedy[i][:len(got)]])
+    _equal("(e) nan_logits, the others",
+           [o[2]["tokens"] for j, o in enumerate(outs) if j != i],
+           [g for j, g in enumerate(greedy) if j != i])
+    log(f"phase 6 (e) nan_logits at the 11th decode step, lane 1: request "
+        f"{i} FAILED after {len(got)} tokens (its uninterrupted prefix), "
+        f"the other 3 equal their uninterrupted tokens "
+        f"({time.perf_counter() - t0:.2f} s wall on {card})")
+    fi = FaultInjector(seed=seed).inject("failed_step", at=3, lane=0,
+                                         error="injected")
+    t0 = time.perf_counter()
+    outs, st, rep = run(serving(four, faults=fi))
+    failed = [i for i, o in enumerate(outs) if o[2]["state"] != "finished"]
+    if (fi.fired("failed_step") != 1 or rep["supervisor_restarts"] != 1
+            or len(failed) != 1 or outs[failed[0]][0] != 500
+            or "supervisor" not in outs[failed[0]][2]["error"]
+            or st["terminal"]["preempted"] != 0):
+        raise AssertionError(f"phase 6 (e) failed_step: {rep}, "
+                             f"{[o[2]['state'] for o in outs]}")
+    g = resumed_equal(
+        "(e) failed_step, the requeued bystanders",
+        [(o[2]["request_id"], o[2]["tokens"]) for j, o in enumerate(outs)
+         if j != failed[0]],
+        [g for j, g in enumerate(greedy) if j != failed[0]])
+    if len(g) != 3 or st["resume_replay_steps"] != sum(g):
+        raise AssertionError(f"phase 6 (e) failed_step: {g} tokens emitted "
+                             f"by the requeued bystanders, "
+                             f"{st['resume_replay_steps']} replay steps")
+    log(f"phase 6 (e) failed_step before the 4th step, lane 0: request "
+        f"{failed[0]} FAILED (500), 1 supervisor restart, "
+        f"{st['admitted'] - 4} re-admissions replaying {g} tokens; the 3 "
+        f"requeued bystanders equal their uninterrupted tokens bit for bit "
+        f"({time.perf_counter() - t0:.2f} s wall on {card})")
+
+    # (f) shedding past max_queue_depth
+    policy = SchedulingPolicy(max_queue_depth=1)
+
+    async def shed(srv):
+        busy = []
+        for p in prompts:                    # one at a time: a queue of one
+            first = asyncio.Event()
+            busy.append(asyncio.ensure_future(_generate(
+                asyncio, srv.port, p, 64, stream=True, first=first,
+                deadline_ms=1e9)))
+            await asyncio.wait_for(first.wait(), IO_S)
+        waiting = asyncio.ensure_future(
+            _generate(asyncio, srv.port, prompts[2], 4))
+        while True:                          # until it sits in the queue
+            r, w = await _send(asyncio, srv.port, "GET", "/statz")
+            st = json.loads((await _receive(asyncio, r, w))[2])
+            if st["submitted"] == 5:
+                break
+            await asyncio.sleep(0.005)
+        sheds = [await _generate(asyncio, srv.port, prompts[3], 4)
+                 for _ in range(3)]
+        return await asyncio.gather(*busy), await waiting, sheds
+    t0 = time.perf_counter()
+    (busy, waiting, sheds), st, _ = run(serving(shed, policy=policy))
+    waits = [float(h["x-retry-after-s"]) for _, h, _ in sheds]
+    if ([c for c, _, _ in sheds] != [429] * 3
+            or waits != [policy.backoff_s(k) for k in (1, 2, 3)]
+            or any(int(h["retry-after"]) < 1 for _, h, _ in sheds)
+            or waiting[2]["state"] != "finished"
+            or st["terminal"]["shed"] != 3):
+        raise AssertionError(f"phase 6 (f): {sheds}, {waiting}")
+    log(f"phase 6 (f): max_queue_depth 1 with 4 busy lanes and 1 queued: "
+        f"3 requests shed with 429, X-Retry-After-S {waits} "
+        f"(Retry-After {[h['retry-after'] for _, h, _ in sheds]} s); the "
+        f"queued request finished ({time.perf_counter() - t0:.2f} s wall on {card})")
+    launches = dict(ops.launches)
+
+    # (g) one terminal state a request, across every server of the phase:
+    # one "request" span on each request's track, one "shed" instant for
+    # each shed request (shed at submit, it never gets a track)
+    submitted = sum(r["submitted"] for r in reports)
+    ends = collections.Counter(
+        e["tid"] for e in tracer.events() if e["name"] == "request")
+    n_shed = sum(1 for e in tracer.events() if e["name"] == "shed")
+    if (sum(r["terminal_sum"] for r in reports) != submitted
+            or len(ends) + n_shed != submitted
+            or set(ends.values()) != {1}):
+        raise AssertionError(f"phase 6 (g): {submitted} submitted, "
+                             f"{sum(ends.values())} terminal transitions "
+                             f"on {len(ends)} request tracks, {n_shed} "
+                             f"shed")
+    log(f"phase 6 (g): {len(reports)} drain reports clean: {submitted} "
+        f"requests submitted, each with one terminal state, 0 pages in "
+        f"use at quiescence")
+
+    # (h) the trace
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tracer.export(pathlib.Path(tmp) / "phase6_trace.json")
+        evs = validate_trace(path)
+    counts = collections.Counter(e["name"] for e in evs)
+    log("phase 6 (h): trace validates: " + json.dumps(
+        dict(sorted(counts.items()))))
+    for k in PAGED_KERNELS:
+        if not launches[k]:
+            raise AssertionError(f"phase 6: {k} never launched")
+    if launches["mx_flash_decode"]:
+        raise AssertionError("phase 6: the paged server launched the "
+                             "contiguous decode kernel")
+    log(f"phase 6 launches: {launches}")
+    log(f"phase 6: {time.perf_counter() - t_start:.1f} s wall on {card}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1413,12 +1844,15 @@ def main(argv=None) -> int:
                check_unpacked_gemm(torch, dev, gen)]
     launches, served = end_to_end(torch, dev, args.seed)
     launches["standalone"] = standalone_path(torch, dev, served["params"])
-    sampling_and_spec(torch, dev, args.seed, card, **served)
-    # each kernel's launches on the path that carries it: the engine's
-    # default (wave, contiguous) for the GEMM and the contiguous decode,
-    # the paged run for the paged kernels, the standalone entry points
-    path_of = {"mx_gemm_packed": "wave", "mx_flash_decode": "wave",
-               "mx_flash_prefill": "paged", "mx_flash_decode_paged": "paged",
+    sampled = sampling_and_spec(torch, dev, args.seed, card, **served)
+    launches["server"] = http_server_phase(torch, dev, args.seed, card,
+                                           served, sampled)
+    # each kernel's launches on the path that carries it: the HTTP server
+    # over the paged engine (phase 6) for the paged path's kernels, the
+    # wave run for the contiguous decode, the standalone entry points
+    path_of = {"mx_gemm_packed": "server", "mx_flash_decode": "wave",
+               "mx_flash_prefill": "server",
+               "mx_flash_decode_paged": "server",
                "mx_quantize": "standalone", "t3_quantize": "standalone",
                "mx_gemm": "standalone"}
     for e in entries:

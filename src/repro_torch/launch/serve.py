@@ -4,12 +4,20 @@
         --backend fused --scheduler wave --kv-layout contiguous \
         --kv-cache mxfp8 --requests 8 --prompt-len 64 --max-new 32 \
         [--temperature 0.8 --top-k 50 --top-p 0.95 --sample-seed 0] \
-        [--spec-k 4 --spec-ngram 3]
+        [--spec-k 4 --spec-ngram 3] \
+        [--deadline-ms MS --ttft-deadline-ms MS --max-retries N \
+         --no-preemption --max-queue-depth N --admit-token-budget N] \
+        [--http HOST:PORT --drain-timeout-s S] [--trace OUT.json] [--metrics]
 
 Runs on the CUDA card (``--device cuda``, the default) or, when asked, on
 the CPU with the kernels' plain PyTorch versions (``--device cpu``). It
 loads the artifact (exported by either package), serves a synthetic wave
-of requests and prints throughput and the schedule counters as JSON.
+of requests and prints throughput and the schedule counters as JSON; with
+``--http`` it serves the engine over HTTP/SSE instead
+(``repro_torch.serving.server``) until SIGTERM/SIGINT, then prints the
+drain report and exits 1 unless it is clean. ``--trace`` exports a Chrome
+trace of the run; ``--metrics`` prints the engine's Prometheus metrics,
+with the kernel launch counts, at exit.
 """
 from __future__ import annotations
 
@@ -61,13 +69,50 @@ def main(argv=None) -> int:
                          "scheduler)")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest context n-gram the drafter matches")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="end-to-end deadline per request in milliseconds; "
+                         "expired requests end TIMED_OUT")
+    ap.add_argument("--ttft-deadline-ms", type=float, default=None,
+                    help="time-to-first-token deadline in milliseconds "
+                         "(expires requests still waiting for a lane)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="preemptions a request survives before it ends "
+                         "PREEMPTED")
+    ap.add_argument("--no-preemption", dest="preemption",
+                    action="store_false", default=True,
+                    help="never evict a lower-priority running request")
+    ap.add_argument("--http", default="", metavar="HOST:PORT",
+                    help="serve over HTTP/SSE instead of the synthetic run "
+                         "(PORT 0 = ephemeral; SIGTERM drains)")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="admission cap: shed (429 + Retry-After) past this "
+                         "queue depth")
+    ap.add_argument("--admit-token-budget", type=int, default=None,
+                    help="admission cap: shed when queued prompt + max_new "
+                         "tokens would exceed this budget")
+    ap.add_argument("--drain-timeout-s", type=float, default=30.0,
+                    help="with --http: how long SIGTERM waits for requests "
+                         "in flight before cancelling them")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="export a Chrome trace of the run (opens in "
+                         "Perfetto)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the engine's Prometheus metrics and the "
+                         "kernel launch counts at exit")
     args = ap.parse_args(argv)
     if args.spec_k > 0:
         args.scheduler = "continuous"   # spec decoding is continuous-only
 
+    from repro_torch.obs import Tracer
     from repro_torch.serving.engine import Engine
-    from repro_torch.serving.policy import SpecConfig
+    from repro_torch.serving.policy import SchedulingPolicy, SpecConfig
     from repro_torch.serving.sampling import SamplingParams
+    policy = SchedulingPolicy(deadline_ms=args.deadline_ms,
+                              ttft_deadline_ms=args.ttft_deadline_ms,
+                              preemption=args.preemption,
+                              max_retries=args.max_retries,
+                              max_queue_depth=args.max_queue_depth,
+                              admit_token_budget=args.admit_token_budget)
     sampling = (SamplingParams(temperature=args.temperature,
                                top_k=args.top_k, top_p=args.top_p,
                                seed=args.sample_seed)
@@ -80,13 +125,47 @@ def main(argv=None) -> int:
         max_len=max(args.max_len, args.prompt_len + args.max_new),
         backend=args.backend, scheduler=args.scheduler, eos_id=args.eos_id,
         kv_cache=args.kv_cache, kv_layout=args.kv_layout,
-        page_size=args.page_size, n_pages=args.n_pages, spec=spec,
+        page_size=args.page_size, n_pages=args.n_pages,
+        tracer=Tracer() if args.trace else None, policy=policy, spec=spec,
         device=args.device)
+    if args.http:
+        return _serve_http(eng, args)
     res = eng.throughput(n_requests=args.requests,
                          prompt_len=args.prompt_len, max_new=args.max_new,
                          seed=args.seed, sampling=sampling)
+    _obs_finish(eng, args)
     print(json.dumps(res, default=str))
     return 0
+
+
+def _serve_http(eng, args) -> int:
+    """--http: run the HTTP/SSE front end until SIGTERM/SIGINT, then
+    print the drain report; exit 1 unless it is clean."""
+    from repro_torch.serving.server import ServerConfig, serve
+    host, _, port = args.http.rpartition(":")
+    report = serve(eng, ServerConfig(host=host or "127.0.0.1",
+                                     port=int(port or 8100),
+                                     drain_timeout_s=args.drain_timeout_s))
+    _obs_finish(eng, args)
+    print("drain report: " + json.dumps(report), flush=True)
+    return 0 if report["clean"] else 1
+
+
+def _obs_finish(eng, args) -> None:
+    """--trace / --metrics: export the Chrome trace and print the
+    Prometheus exposition of the engine's registry, with the kernel
+    launch counts of the run (``kernels.ops.launches``)."""
+    if args.trace:
+        print(f"trace -> {eng.tracer.export(args.trace)} "
+              f"({len(eng.tracer.events())} events)")
+    if args.metrics:
+        from repro_torch.kernels import ops
+        for name, n in ops.launches.items():
+            eng.metrics.counter(
+                "kernel_launches_total", {"kernel": name},
+                help="CUDA kernel launches by wrapper (plain-version calls "
+                     "on the CPU are not counted)").inc(n)
+        print(eng.metrics.render_prometheus())
 
 
 if __name__ == "__main__":

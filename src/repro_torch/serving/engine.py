@@ -30,13 +30,48 @@ back by rewinding the lane's position (paged: inside the pages admission
 reserved for prompt + max_new). Schedule counters and tokens follow the
 JAX engine step for step.
 
-Waiting for later slices: deadlines, cancel, preemption (a request the
-pool cannot take waits in the queue until pages free up), admission
-shedding, fault injection and the tracer.
+Lifecycle, as in the JAX engine: every request ends in exactly one
+terminal ``RequestState`` — FINISHED, CANCELLED (:meth:`Engine.cancel`),
+TIMED_OUT (TTFT and end-to-end deadlines, checked while queued and between
+decode bursts), FAILED (the per-lane finite guard, a request that can
+never fit the pool, or :meth:`Engine.fail_lane`), PREEMPTED (evicted with
+its retry budget spent) or SHED (refused by admission control at
+:meth:`Engine.submit`, which raises ``ShedError`` with a Retry-After that
+grows with consecutive sheds). Admission is priority-ordered; a strictly
+higher-priority arrival, or page pressure, preempts the lowest-priority
+lane (pages released, request requeued with backoff). Re-admission
+prefills the prompt as the first admission did, then replays the emitted
+tokens through decode steps over the B-lane batch (the steps the
+uninterrupted run took), and a sampled request draws at its emitted
+count, so a resumed request gives its uninterrupted tokens bit for bit,
+on the card too. The JAX engine re-prefills prompt + emitted tokens
+instead: on the card the prefill kernels sum in other orders than the
+decode kernels, and a token at an MX rounding midpoint or a near-tie
+draw can then part. Under speculative decoding the emitted tokens' KV
+came from verify steps, which the replay does not repeat, so there the
+card's resume is not bit-identical.
+A seeded ``FaultInjector`` (``Engine(faults=...)``, ``serving.faults``)
+fires the points ``slow_step``, ``alloc_exhausted``, ``evict_cache`` and
+``nan_logits`` (wave, decode burst, verify step; the NaN lands in the
+lane's logits before the finite guard).
+
+``Engine(tracer=...)`` records the JAX engine's spans (``wave``,
+``prefill``, ``decode_loop``, ``host_sync``, ``admit``, ``prefill_chunk``,
+``merge``, ``copy_page``, ``engine_step``, ``decode_burst``,
+``decode_step``, ``verify_step``), the per-request ``queued`` /
+``prefill`` / ``decode`` / ``request`` intervals and the ``first_token``,
+``shed``, ``cancel``, ``fail_lane``, ``requeue``, ``timeout``, ``preempt``,
+``nan_guard`` and ``fault:evict_cache`` instants. The JAX engine's
+``compile:*`` instants have no counterpart: the port compiles nothing.
+Spans time host work: kernels launch asynchronously, so a span closes when
+the host has queued its work, and the device wait lands in ``host_sync``
+(the one device-to-host copy of a burst). Without a tracer nothing is
+recorded.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import time
@@ -49,9 +84,12 @@ from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import KVCacheQuant, QuantMode
 from repro_torch.models import api
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.policy import (RequestQueue, RequestState,
-                                        SchedulingPolicy, SpecConfig)
+                                        SchedulingPolicy, ShedError,
+                                        SpecConfig, TERMINAL_STATES,
+                                        pick_victim)
 from repro_torch.serving.sampling import (SamplingParams, propose_ngram,
                                           sample_tokens, spec_accept)
 
@@ -161,6 +199,19 @@ class BlockAllocator:
             self._lru.move_to_end(p)
         return p
 
+    def flush_cache(self) -> int:
+        """Evict every cached (unreferenced, registered) page to the free
+        list; returns how many. The ``evict_cache`` fault point's hook:
+        referenced pages are untouched."""
+        n = 0
+        while self._lru:
+            p, _ = self._lru.popitem(last=False)
+            del self._page_of[self._hash_of.pop(p)]
+            self._free.append(p)
+            self.evicted += 1
+            n += 1
+        return n
+
     def check(self) -> dict:
         """Verify the allocator's invariants — free + cached + referenced
         partition [reserved, n_pages) exactly; raises AssertionError on a
@@ -205,7 +256,16 @@ class Request:                         # a handle, not a value
     decode budget; ``on_token`` an optional callback for each emitted
     token; ``out`` the emitted int32 tokens once the request completes.
     ``t_*`` are wall-clock timestamps, ``m_*`` ``time.perf_counter()``
-    readings that every duration is computed from."""
+    readings that every duration is computed from.
+
+    ``state`` walks QUEUED -> RUNNING -> one terminal state; ``error``
+    says why a request ended other than FINISHED. ``priority`` orders
+    admission and gates preemption (only strictly lower-priority lanes
+    are evicted for a request). ``deadline_ms`` (submit -> done) and
+    ``ttft_deadline_ms`` (submit -> first token) override the policy's
+    defaults. ``request_id`` keys :meth:`Engine.cancel`; ``retries``,
+    ``preemptions`` and ``not_before`` are preemption bookkeeping; ``_gen``
+    keeps the emitted tokens across preemptions."""
 
     prompt: np.ndarray                  # (S,) int32
     max_new: int = 16
@@ -217,10 +277,16 @@ class Request:                         # a handle, not a value
     m_first: float = 0.0
     m_done: float = 0.0
     on_token: Optional[Callable[[int], None]] = None
-    priority: int = 0                   # higher admits first
+    trace_track: Optional[str] = None   # tracer track (engine-set)
+    priority: int = 0                   # higher admits (and evicts) first
+    deadline_ms: Optional[float] = None          # submit -> done
+    ttft_deadline_ms: Optional[float] = None     # submit -> first token
     request_id: Optional[str] = None
     state: RequestState = RequestState.QUEUED
     error: Optional[str] = None
+    retries: int = 0                    # re-admissions after preemption
+    preemptions: int = 0                # times evicted from a lane
+    not_before: float = 0.0             # backoff hold (perf_counter)
     # None (or temperature <= 0) decodes greedily; else token i is drawn
     # with the key of (seed, i), so a run is replayable
     sampling: Optional[SamplingParams] = None
@@ -246,7 +312,8 @@ class Engine:
     the flash-decode kernel of its layout (and, paged, the flash-prefill
     kernel). :meth:`submit` enqueues, :meth:`step` runs one scheduler
     step, :meth:`drain` steps until idle, :meth:`generate` = submit all +
-    drain."""
+    drain; :meth:`cancel`, :meth:`fail_lane` and :meth:`requeue_lane` end
+    or requeue a request wherever it is."""
 
     _RUN_KEYS = ("admitted", "decode_steps", "slot_steps",
                  "useful_decode_tokens", "prefill_chunk_steps",
@@ -265,7 +332,9 @@ class Engine:
                  page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Tracer] = None,
                  policy: Optional[SchedulingPolicy] = None,
+                 faults: Optional[FaultInjector] = None,
                  spec: Optional[SpecConfig] = None,
                  device=None):
         """Arguments and defaults as in the JAX engine. bucket_prompts
@@ -277,6 +346,10 @@ class Engine:
         a multiple of 32 and of attn_chunk; n_pages defaults to one scrap
         page + batch_size * ceil(max_len / page_size). ``spec`` turns on
         self-drafting speculative decoding (continuous scheduler only).
+        ``tracer`` records spans and instants (None: nothing is recorded);
+        ``policy`` holds deadlines, preemption, retries, backoff and the
+        admission caps; ``faults`` is a seeded ``FaultInjector`` whose
+        rules fire at the engine's fault points (None adds no work).
         ``device`` is where the engine runs: None means the CUDA card, and
         the CPU runs only when asked for."""
         self.device = devices.resolve(device)
@@ -300,6 +373,7 @@ class Engine:
                              f"family; got {cfg.family!r}")
         self.policy = policy if policy is not None else SchedulingPolicy()
         self.spec = spec
+        self._faults = faults
         self.kv_quant = KVCacheQuant.parse(kv_cache)
         if self.kv_quant is not None and cfg.kv_dim % 32 != 0:
             raise ValueError(
@@ -347,6 +421,7 @@ class Engine:
             self._slot_pages: List[Optional[List[int]]] = [None] * self.B
 
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer
         reg = self.metrics
         self._c_admitted = reg.counter(
             "serving_requests_admitted_total",
@@ -412,7 +487,14 @@ class Engine:
             s: reg.counter("serving_requests_terminal_total",
                            {"state": s.value},
                            help="requests reaching this terminal state")
-            for s in (RequestState.FINISHED, RequestState.FAILED)}
+            for s in (RequestState.FINISHED, RequestState.CANCELLED,
+                      RequestState.TIMED_OUT, RequestState.FAILED,
+                      RequestState.PREEMPTED, RequestState.SHED)}
+        self._c_preempt = reg.counter(
+            "serving_preemptions_total",
+            help="running requests evicted from a lane (priority or page "
+                 "pressure); each is requeued with backoff until its "
+                 "retry budget runs out")
         self._c_nan = reg.counter(
             "serving_nan_guard_trips_total",
             help="requests failed by the per-lane non-finite-logit guard")
@@ -420,6 +502,15 @@ class Engine:
             "serving_rejected_never_fit_total",
             help="requests rejected at admission because prompt+budget "
                  "can never fit the pool")
+        self._c_shed = reg.counter(
+            "serving_requests_shed_total",
+            help="requests refused by admission control at submit() "
+                 "(queue depth, per-priority and token-budget caps); "
+                 "terminal SHED, never requeued")
+        self._c_replay_steps = reg.counter(
+            "serving_resume_replay_steps_total", unit="steps",
+            help="decode steps that replay a resumed request's emitted "
+                 "tokens into its new lane")
         self._c_spec_proposed = reg.counter(
             "serving_spec_proposed_total", unit="tokens",
             help="draft tokens proposed by the prompt-lookup drafter and "
@@ -429,7 +520,9 @@ class Engine:
             help="proposed draft tokens accepted by the verify step")
         self._evicted_seen = 0
 
-        self._queue = RequestQueue()
+        self._queue = RequestQueue(max_depth=self.policy.max_queue_depth)
+        self._shed_streak = 0      # consecutive sheds -> Retry-After
+        self._by_id: dict = {}     # request_id -> live request
         self._next_id = 0
         self._slots: List[Optional[_Slot]] = [None] * self.B
         self._admit_cursor = 0
@@ -464,6 +557,12 @@ class Engine:
     def prefix_hit_tokens(self) -> int:
         return int(self._c_prefix_hit_toks.value)
 
+    def _span(self, name: str, **args):
+        """Engine-track span, or a no-op when tracing is off."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **args)
+
     def _sync_alloc_metrics(self) -> None:
         if self._alloc is None:
             return
@@ -484,7 +583,9 @@ class Engine:
                       page_size: Optional[int] = None,
                       n_pages: Optional[int] = None,
                       metrics: Optional[MetricsRegistry] = None,
+                      tracer: Optional[Tracer] = None,
                       policy: Optional[SchedulingPolicy] = None,
+                      faults: Optional[FaultInjector] = None,
                       spec: Optional[SpecConfig] = None,
                       device=None) -> "Engine":
         """Serve an exported artifact directory: load the packed bytes
@@ -497,23 +598,114 @@ class Engine:
         return cls(params, cfg, qm, batch_size=batch_size, max_len=max_len,
                    scheduler=scheduler, eos_id=eos_id, kv_cache=kv_cache,
                    kv_layout=kv_layout, page_size=page_size,
-                   n_pages=n_pages, metrics=metrics, policy=policy,
-                   spec=spec, device=dev)
+                   n_pages=n_pages, metrics=metrics, tracer=tracer,
+                   policy=policy, faults=faults, spec=spec, device=dev)
 
     # ------------------------------------------------------------------
     # Streaming API
     # ------------------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
-        """Enqueue a request; it starts on the next :meth:`step`."""
+        """Enqueue a request; it starts on the next :meth:`step`.
+
+        Assigns a ``request_id`` when the request has none, applies the
+        policy's default deadlines to a request without its own, and
+        moves it to QUEUED. Admission control (``policy.max_queue_depth``,
+        ``max_queue_depth_per_priority``, ``admit_token_budget``) sheds an
+        over-limit request: it ends SHED (counted in ``submitted``) and
+        :class:`ShedError` is raised with a ``retry_after_s`` that follows
+        the policy's backoff for each consecutive shed (reset by the next
+        admission, capped at ``backoff_s(6)``)."""
         req.t_submit = time.time()
         req.m_submit = time.perf_counter()
         if req.request_id is None:
             req.request_id = f"req-{self._next_id}"
             self._next_id += 1
+        if req.deadline_ms is None:
+            req.deadline_ms = self.policy.deadline_ms
+        if req.ttft_deadline_ms is None:
+            req.ttft_deadline_ms = self.policy.ttft_deadline_ms
         self._c_submitted.inc()
+        reason = self.policy.shed_reason(self._queue, req)
+        if reason is not None:
+            self._shed_streak += 1
+            retry_after = self.policy.backoff_s(min(self._shed_streak, 6))
+            self._c_shed.inc()
+            if self.tracer is not None:
+                self.tracer.instant("shed", track="engine", cat="request",
+                                    request=req.request_id, reason=reason)
+            self._finish(req, req._gen, state=RequestState.SHED,
+                         error=f"shed by admission control: {reason}")
+            raise ShedError(req, reason, retry_after)
+        self._shed_streak = 0
         req.state = RequestState.QUEUED
+        self._by_id[req.request_id] = req
+        if self.tracer is not None and req.trace_track is None:
+            # the tracer numbers the tracks, so engines sharing one tracer
+            # keep them apart
+            req.trace_track = f"req-{self.tracer.next_index('req')}"
         self._queue.push(req)
+        self._g_queue_depth.set(len(self._queue))
+        return req
+
+    def cancel(self, request_id: str) -> bool:
+        """Stop ``request_id`` wherever it is: a queued request is dropped
+        (the queue skips it lazily), a running one frees its lane and
+        pages. It ends CANCELLED with the tokens emitted so far in
+        ``out``. Returns False for an unknown or already terminal id."""
+        req = self._by_id.get(request_id)
+        if req is None or req.state in TERMINAL_STATES:
+            return False
+        for i, sl in enumerate(self._slots):
+            if sl is not None and sl.req is req:
+                self._slots[i] = None
+                self._release_lane(i)
+                self._sync_alloc_metrics()
+                break
+        if self.tracer is not None and req.trace_track is not None:
+            self.tracer.instant("cancel", track=req.trace_track,
+                                cat="request")
+        self._finish(req, req._gen, state=RequestState.CANCELLED,
+                     error="cancelled by client")
+        self._g_queue_depth.set(len(self._queue))
+        return True
+
+    def fail_lane(self, lane: int, error: str):
+        """Supervisor hook: end the request on ``lane`` FAILED and free
+        the lane and its pages (re-running it would poison the next step
+        the same way). Returns the request, or None for an empty lane."""
+        sl = self._slots[lane]
+        if sl is None:
+            return None
+        req = sl.req
+        self._slots[lane] = None
+        self._release_lane(lane)
+        self._sync_alloc_metrics()
+        if self.tracer is not None and req.trace_track is not None:
+            self.tracer.instant("fail_lane", track=req.trace_track,
+                                cat="request", lane=lane, reason=error)
+        self._finish(req, req._gen, state=RequestState.FAILED, error=error)
+        return req
+
+    def requeue_lane(self, lane: int, reason: str):
+        """Supervisor hook: return ``lane``'s request to the queue front
+        without charging its retry budget (a bystander of a failed step).
+        The lane and its pages are freed; the emitted tokens stay in
+        ``_gen``, so re-admission replays them (:meth:`_replay`) and
+        resumes with the uninterrupted tokens. Returns the request, or
+        None for an empty lane."""
+        sl = self._slots[lane]
+        if sl is None:
+            return None
+        req = sl.req
+        self._slots[lane] = None
+        self._release_lane(lane)
+        self._sync_alloc_metrics()
+        if self.tracer is not None and req.trace_track is not None:
+            self.tracer.instant("requeue", track=req.trace_track,
+                                cat="request", lane=lane, reason=reason)
+        req.state = RequestState.QUEUED
+        self._queue.push_front(req)
         self._g_queue_depth.set(len(self._queue))
         return req
 
@@ -522,10 +714,17 @@ class Engine:
 
         Continuous: admit queued requests into free lanes (chunked
         prefill), then one decode burst over every live lane. Wave: serve
-        one full wave of up to B queued requests."""
+        one full wave of up to B queued requests. Both first honour the
+        ``slow_step`` fault point and time out queued requests whose
+        deadline has passed."""
+        if self._faults is not None:
+            hit = self._faults.fire("slow_step")
+            if hit is not None:
+                time.sleep(float(hit.get("delay_s", 0.01)))
         if self.scheduler == "continuous":
             return self._step_continuous()
         done: List[Request] = []
+        self._expire_queued(done)
         reqs: List[Request] = []
         now = time.perf_counter()
         while len(reqs) < self.B:
@@ -543,6 +742,29 @@ class Engine:
     def _step_continuous(self) -> List[Request]:
         self._ensure_pool()
         done: List[Request] = []
+        with self._span("engine_step"):
+            self._step_continuous_inner(done)
+        self._sync_alloc_metrics()
+        self._g_queue_depth.set(len(self._queue))
+        if not done and not any(s is not None for s in self._slots):
+            # nothing ran and nothing ended: every queued request is in a
+            # backoff hold — sleep toward the nearest release
+            d = self._queue.next_eligible_delay(time.perf_counter())
+            if d:
+                time.sleep(min(d, 0.02))
+        return done
+
+    def _step_continuous_inner(self, done: List[Request]) -> None:
+        # lifecycle pre-pass: the forced-eviction fault, queued deadlines,
+        # then the priority preemption trigger
+        if (self._faults is not None and self.kv_layout == "paged"
+                and self._faults.fire("evict_cache") is not None):
+            n = self._alloc.flush_cache()
+            if self.tracer is not None:
+                self.tracer.instant("fault:evict_cache", cat="fault",
+                                    evicted=n)
+        self._expire_queued(done)
+        self._maybe_preempt_priority(done)
         # paged admission batches up to max_prefill_lanes_per_step requests
         # into one chunked-prefill loop; the contiguous layout admits one
         # request at a time through its one-lane scratch cache
@@ -554,15 +776,15 @@ class Engine:
             self._admit_serial(done)
         self._admit_cursor = (self._admit_cursor + 1) % self.B
         live = [i for i in range(self.B) if self._slots[i] is not None]
-        if live and self.spec is not None:
+        if not live:
+            return
+        if self.spec is not None:
             # one verify step replaces the burst: drafts depend on the
             # tokens the previous step emitted
             self._spec_decode_step(live, done)
-        elif live:
+        else:
             self._decode_burst(live, done)
-        self._sync_alloc_metrics()
-        self._g_queue_depth.set(len(self._queue))
-        return done
+        self._expire_running(done)
 
     @property
     def busy(self) -> bool:
@@ -603,13 +825,29 @@ class Engine:
             req.m_first, req.t_first = req.m_done, req.t_done
         self._c_terminal[state].inc()
         self._c_useful.inc(max(len(req.out) - 1, 0))
-        if req.m_submit:
+        if req.m_submit and state is not RequestState.SHED:
+            # a shed request never ran: a ~0 latency sample would fake
+            # good percentiles exactly under overload
             self._h_latency.observe(req.m_done - req.m_submit)
             if req.m_first:
+                # no first token (expired in the queue, failed prefill):
+                # nothing to observe
                 self._h_ttft.observe(req.m_first - req.m_submit)
         if len(req.out) > 1 and req.m_done > req.m_first > 0:
             self._h_tpot.observe((req.m_done - req.m_first)
                                  / (len(req.out) - 1))
+        if self.tracer is not None and req.trace_track is not None:
+            if req.m_first and req.m_done > req.m_first:
+                self.tracer.complete("decode", req.m_first, req.m_done,
+                                     track=req.trace_track, cat="request")
+            self.tracer.complete("request", req.m_submit or req.m_done,
+                                 req.m_done, track=req.trace_track,
+                                 cat="request", tokens=len(req.out),
+                                 prompt=len(req.prompt),
+                                 state=state.value,
+                                 **({"error": req.error}
+                                    if req.error else {}))
+        self._by_id.pop(req.request_id, None)
 
     def _bucket_len(self, s: int, max_new: int) -> int:
         """Round a prompt length up to the attention chunk, but only as far
@@ -657,6 +895,141 @@ class Engine:
                      error=f"request can never fit the KV pool: {err} — "
                            f"raise max_len/n_pages or lower max_new")
         done.append(req)
+
+    # ------------------------------------------------------------------
+    # Lifecycle policy: deadlines and preemption
+    # ------------------------------------------------------------------
+
+    def _deadline_reason(self, req: Request, now: float,
+                         where: str) -> Optional[str]:
+        """Which deadline, if any, ``req`` has passed at ``now``."""
+        if not req.m_submit:
+            return None
+        waited_ms = (now - req.m_submit) * 1e3
+        if req.deadline_ms is not None and waited_ms >= req.deadline_ms:
+            return (f"end-to-end deadline {req.deadline_ms:g}ms exceeded "
+                    f"{where} ({waited_ms:.0f}ms elapsed)")
+        if (req.ttft_deadline_ms is not None and not req.m_first
+                and waited_ms >= req.ttft_deadline_ms):
+            return (f"TTFT deadline {req.ttft_deadline_ms:g}ms exceeded "
+                    f"{where} ({waited_ms:.0f}ms elapsed)")
+        return None
+
+    def _timeout(self, req: Request, reason: str,
+                 done: List[Request]) -> None:
+        if self.tracer is not None and req.trace_track is not None:
+            self.tracer.instant("timeout", track=req.trace_track,
+                                cat="request", reason=reason)
+        self._finish(req, req._gen, state=RequestState.TIMED_OUT,
+                     error=reason)
+        done.append(req)
+
+    def _expire_queued(self, done: List[Request]) -> None:
+        """Time out queued requests past a deadline, before they cost a
+        prefill (the queue drops them lazily)."""
+        now = time.perf_counter()
+        for req in list(self._queue):
+            reason = self._deadline_reason(req, now, "while queued")
+            if reason is not None:
+                self._timeout(req, reason, done)
+
+    def _expire_running(self, done: List[Request]) -> None:
+        """Time out running requests past their end-to-end deadline,
+        between decode bursts (``policy.deadline_burst_cap`` bounds how
+        late this check can be)."""
+        now = time.perf_counter()
+        for i in range(self.B):
+            sl = self._slots[i]
+            if sl is None:
+                continue
+            reason = self._deadline_reason(sl.req, now, "while decoding")
+            if reason is not None:
+                self._slots[i] = None
+                self._release_lane(i)
+                self._timeout(sl.req, reason, done)
+
+    def _preempt(self, lane: int, done: List[Request], reason: str) -> None:
+        """Evict ``lane``: free it and its pages, then requeue the request
+        at the queue front with backoff (its emitted tokens stay in
+        ``_gen`` for :meth:`_replay`). A request past its retry budget
+        ends PREEMPTED."""
+        sl = self._slots[lane]
+        req = sl.req
+        self._slots[lane] = None
+        self._release_lane(lane)
+        self._c_preempt.inc()
+        req.preemptions += 1
+        req.retries += 1
+        if self.tracer is not None and req.trace_track is not None:
+            self.tracer.instant("preempt", track=req.trace_track,
+                                cat="request", lane=lane, reason=reason,
+                                retry=req.retries)
+        if req.retries > self.policy.max_retries:
+            self._finish(
+                req, req._gen, state=RequestState.PREEMPTED,
+                error=f"preempted {req.preemptions}x ({reason}); retry "
+                      f"budget {self.policy.max_retries} exhausted")
+            done.append(req)
+            return
+        req.state = RequestState.QUEUED
+        req.not_before = (time.perf_counter()
+                          + self.policy.backoff_s(req.retries))
+        self._queue.push_front(req)
+
+    def _victim_lanes(self):
+        return ((i, s.req) for i, s in enumerate(self._slots)
+                if s is not None)
+
+    def _maybe_preempt_priority(self, done: List[Request]) -> None:
+        """Every lane busy and a strictly higher-priority request waiting:
+        evict the worst lane (at most one a step; admission takes the
+        freed lane in the same step)."""
+        if not self.policy.preemption:
+            return
+        if any(s is None for s in self._slots):
+            return
+        head = self._queue.peek(time.perf_counter())
+        if head is None:
+            return
+        lane = pick_victim(self._victim_lanes(), max_priority=head.priority)
+        if lane is not None:
+            self._preempt(lane, done, "priority")
+
+    def _replay(self, slot: int, req: Request, pos0: int) -> torch.Tensor:
+        """Bring a resumed request's lane back to where it was evicted:
+        its prompt is prefilled (its KV ends at ``pos0``); decode its
+        emitted tokens one by one at positions ``pos0``, ``pos0 + 1``, ...
+        and return the last step's (V,) logits row, which picks its next
+        token. These are the decode steps of the uninterrupted run, over
+        the same B-lane batch (the flash-decode split depends on B), so
+        the lane's KV and logits are bit for bit that run's. The other
+        lanes ride along: paged on the scrap page; contiguous, a live lane
+        rewrites its last token's KV at its position (its next step writes
+        the same row again) and an idle lane its stale row 0. The fault
+        points do not fire here."""
+        paged = self.kv_layout == "paged"
+        cur = np.zeros(self.B, np.int32)
+        pos = np.zeros(self.B, np.int32)
+        if paged:
+            tables = np.zeros_like(self._tables)
+            tables[slot] = self._tables[slot]
+            tables_d = self._tensor(tables)
+        else:
+            for i, sl in enumerate(self._slots):
+                if sl is not None:
+                    cur[i], pos[i] = sl.toks[-1], sl.pos
+        for j, tok in enumerate(req._gen):
+            cur[slot], pos[slot] = tok, pos0 + j
+            if paged:
+                logits, self._cache = api.decode_paged(
+                    self.params, self.cfg, self._cache, self._tensor(cur),
+                    self._tensor(pos), tables_d, self.qm)
+            else:
+                logits, self._cache = api.decode(
+                    self.params, self.cfg, self._cache, self._tensor(cur),
+                    self._tensor(pos), self.qm)
+            self._c_replay_steps.inc()
+        return logits[slot]
 
     def _ensure_pool(self) -> None:
         if self._cache is not None:
@@ -731,16 +1104,20 @@ class Engine:
         """Host half of a paged admission: page accounting, prefix
         matching, copy-on-write and the lane's block-table row. Returns a
         plan for the prefill loop, or None on backpressure (every page
-        reference taken here released)."""
+        reference taken here released). A preempted request re-admits
+        with its prompt and whole budget, as it first did (its prompt's
+        registered pages are prefix hits), and its emitted tokens are
+        replayed into the pages that cover prompt + max_new."""
         prompt = np.asarray(req.prompt, np.int32)
         s = len(prompt)
+        max_new = req.max_new
         C = self.cfg.attn_chunk
         P = self.page_size
-        if s + req.max_new > self.max_len:
+        if s + max_new > self.max_len:
             raise ValueError(
                 f"request does not fit the KV pool: prompt {s} + max_new "
-                f"{req.max_new} > max_len {self.max_len}")
-        n_req_pages = -(-(s + req.max_new) // P)
+                f"{max_new} > max_len {self.max_len}")
+        n_req_pages = -(-(s + max_new) // P)
         hashes = self._page_hashes(prompt)
         matched: List[int] = []
         for h in hashes:
@@ -757,14 +1134,17 @@ class Engine:
             self._alloc.incref(p)
         if cow_src is not None:
             self._alloc.incref(cow_src)     # pin across alloc + copy
-        fresh = self._alloc.alloc(n_req_pages - m_full)
+        forced = (self._faults is not None and
+                  self._faults.fire("alloc_exhausted",
+                                    need=n_req_pages - m_full) is not None)
+        fresh = None if forced else self._alloc.alloc(n_req_pages - m_full)
         if fresh is None:
             for p in matched[:m_full]:
                 self._alloc.decref(p)
             if cow_src is not None:
                 self._alloc.decref(cow_src)
-            if not in_flight and not any(sl is not None
-                                         for sl in self._slots):
+            if (not forced and not in_flight
+                    and not any(sl is not None for sl in self._slots)):
                 raise ValueError(
                     f"KV page pool exhausted with no requests in flight: "
                     f"request needs {n_req_pages - m_full} fresh pages but "
@@ -774,7 +1154,8 @@ class Engine:
             return None
         pages = matched[:m_full] + fresh
         if cow_src is not None:
-            self._copy_page(cow_src, fresh[0])
+            with self._span("copy_page", src=cow_src, dst=fresh[0]):
+                self._copy_page(cow_src, fresh[0])
             self._alloc.decref(cow_src)
         self._c_prefix_hit_toks.inc(resume)
         (self._c_prefix_hits if m_full else self._c_prefix_misses).inc()
@@ -797,10 +1178,12 @@ class Engine:
         logits = None
         for ci in range(plan["n_chunks"]):
             width = min(s - resume - ci * C, C)
-            logits, self._cache = api.prefill_chunk_paged(
-                self.params, self.cfg, self._cache, table_row,
-                self._tensor(buf[None, ci * C:(ci + 1) * C]),
-                resume + ci * C, width - 1, self.qm)
+            with self._span("prefill_chunk", chunk=ci, slot=slot,
+                            paged=True, prefill_batch=1):
+                logits, self._cache = api.prefill_chunk_paged(
+                    self.params, self.cfg, self._cache, table_row,
+                    self._tensor(buf[None, ci * C:(ci + 1) * C]),
+                    resume + ci * C, width - 1, self.qm)
             self._c_chunk_steps.inc()
             self._c_prefill_lane_steps.inc()
             self._h_prefill_batch.observe(1)
@@ -808,12 +1191,15 @@ class Engine:
 
     def _admit_paged_finish(self, plan: dict, row: torch.Tensor) -> tuple:
         """Register the prompt's full pages for prefix sharing, pin the
-        lane's page list, take the first token."""
-        slot, s = plan["slot"], plan["s"]
+        lane's page list, replay a resumed request's emitted tokens, take
+        the next token. Returns (next write position, token, finite)."""
+        slot, s, req = plan["slot"], plan["s"], plan["req"]
         for j in range(s // self.page_size):
             self._alloc.register(plan["hashes"][j], plan["pages"][j])
         self._slot_pages[slot] = plan["pages"]
-        return (s, *self._first_token(plan["req"], row))
+        if req._gen:
+            row = self._replay(slot, req, s)
+        return (s + len(req._gen), *self._first_token(req, row))
 
     def _first_token(self, req: Request, row: torch.Tensor) -> tuple:
         """(first token, finite) from a (V,) row of admission logits.
@@ -850,13 +1236,30 @@ class Engine:
 
     def _record_admission(self, req: Request, t_a0: float,
                           t_a1: float, ok: bool) -> None:
+        """Admission telemetry of serial and batched admission: the
+        counter, the RUNNING transition, the first token and queue wait
+        (first admission only: a resumed request's is not a new first
+        token), and the request track's events. ``t_a0`` is when
+        admission work began, ``t_a1`` when the first token was on the
+        host."""
         self._c_admitted.inc()
         req.state = RequestState.RUNNING
-        if not req.m_first and ok:
+        first = not req.m_first
+        if first and ok:
             req.m_first = t_a1
             req.t_first = time.time()
             if req.m_submit:
                 self._h_queue_wait.observe(t_a0 - req.m_submit)
+        if self.tracer is not None and req.trace_track is not None:
+            if req.m_submit and first:
+                self.tracer.complete("queued", req.m_submit, t_a0,
+                                     track=req.trace_track, cat="request")
+            self.tracer.complete("prefill", t_a0, t_a1,
+                                 track=req.trace_track, cat="request",
+                                 prompt=len(req.prompt), resumed=not first)
+            if first and ok:
+                self.tracer.instant("first_token", track=req.trace_track,
+                                    cat="request")
 
     def _post_admission(self, i: int, req: Request, res: tuple,
                         done: List[Request]) -> bool:
@@ -865,6 +1268,9 @@ class Engine:
         sb, tok, ok = res
         if not ok:
             self._c_nan.inc()
+            if self.tracer is not None and req.trace_track is not None:
+                self.tracer.instant("nan_guard", track=req.trace_track,
+                                    cat="request", lane=i, step=-1)
             self._release_lane(i)
             self._finish(req, req._gen, state=RequestState.FAILED,
                          error=f"non-finite logits at prefill (lane {i})")
@@ -886,8 +1292,10 @@ class Engine:
         """Fill free lanes in admit-cursor ring order, one request at a
         time: pop, reject what can never fit, finish zero-budget requests,
         prefill the rest (contiguous: :meth:`_admit`; paged: the plan's
-        serial prefill). On paged backpressure the request goes back to
-        the queue front and admission stops for this step."""
+        serial prefill). Under page pressure a strictly lower-priority
+        lane is preempted and the admission retried; when nothing can be
+        evicted the request goes back to the queue front and admission
+        stops for this step."""
         paged = self.kv_layout == "paged"
         blocked = False
         for off in range(self.B):
@@ -907,23 +1315,41 @@ class Engine:
                     self._finish(req, req._gen)
                     done.append(req)
                     continue
-                t_a0 = time.perf_counter()
-                if paged:
-                    plan = self._admit_paged_prep(i, req)
-                    res = (None if plan is None
-                           else self._prefill_plan_serial(plan))
-                else:
-                    res = self._admit(i, req)
+                res = self._admit_one(i, req, paged)
+                while res is None and self.policy.preemption:
+                    # page pressure: evict a strictly lower-priority lane
+                    # and retry; its pages (and cache evictions) cover us
+                    lane = pick_victim(self._victim_lanes(),
+                                       max_priority=req.priority)
+                    if lane is None:
+                        break
+                    self._preempt(lane, done, "page pressure")
+                    res = self._admit_one(i, req, paged)
                 if res is None:
                     self._queue.push_front(req)
                     blocked = True
                     break
-                self._record_admission(req, t_a0, time.perf_counter(),
-                                       res[2])
                 if self._post_admission(i, req, res, done):
                     break
             if blocked:
                 break
+
+    def _admit_one(self, i: int, req: Request, paged: bool):
+        """Admit ``req`` into lane ``i`` inside an ``admit`` span and
+        record it. Returns (sb, tok, ok), or None on paged backpressure
+        (nothing recorded for the request)."""
+        t_a0 = time.perf_counter()
+        with self._span("admit", slot=i, prompt=len(req.prompt),
+                        req=req.trace_track or ""):
+            if paged:
+                plan = self._admit_paged_prep(i, req)
+                if plan is None:
+                    return None
+                res = self._prefill_plan_serial(plan)
+            else:
+                res = self._admit(i, req)
+        self._record_admission(req, t_a0, time.perf_counter(), res[2])
+        return res
 
     def _admit(self, slot: int, req: Request) -> tuple:
         """Contiguous admission: chunk-prefill ``req`` into the one-lane
@@ -931,10 +1357,12 @@ class Engine:
         is left-padded to its bucket and run in attn_chunk-wide pieces;
         the last piece right-pads and reads the logits of the last real
         token (its pad rows stay masked until decode overwrites them).
-        Returns (bucketed prompt length, first token, finite)."""
+        A preempted request re-admits with its prompt and whole budget,
+        as it first did, and then replays its emitted tokens. Returns
+        (next write position, token, finite)."""
         prompt = np.asarray(req.prompt, np.int32)
         s = len(prompt)
-        max_new = req.max_new - len(req._gen)
+        max_new = req.max_new
         C = self.cfg.attn_chunk
         sb = self._bucket_len(s, max_new)
         if sb + max_new > self.max_len:
@@ -947,15 +1375,20 @@ class Engine:
         logits = None
         for ci in range(n_chunks):
             width = min(sb - ci * C, C)
-            logits, self._slot_cache = api.prefill_chunk(
-                self.params, self.cfg, self._slot_cache,
-                self._tensor(buf[None, ci * C:(ci + 1) * C]), ci * C,
-                width - 1, self.qm)
+            with self._span("prefill_chunk", chunk=ci, slot=slot):
+                logits, self._slot_cache = api.prefill_chunk(
+                    self.params, self.cfg, self._slot_cache,
+                    self._tensor(buf[None, ci * C:(ci + 1) * C]), ci * C,
+                    width - 1, self.qm)
             self._c_chunk_steps.inc()
             self._c_prefill_lane_steps.inc()
             self._h_prefill_batch.observe(1)
-        self._merge_slot(slot)
-        return (sb, *self._first_token(req, logits[0]))
+        with self._span("merge", slot=slot):
+            self._merge_slot(slot)
+        row = logits[0]
+        if req._gen:
+            row = self._replay(slot, req, sb)
+        return (sb + len(req._gen), *self._first_token(req, row))
 
     def _merge_slot(self, slot: int) -> None:
         """Copy the scratch cache (every layer, K and V, codes and scales)
@@ -1009,6 +1442,15 @@ class Engine:
                     break
                 t_a0 = time.perf_counter()
                 plan = self._admit_paged_prep(i, req, in_flight=bool(plans))
+                while plan is None and self.policy.preemption:
+                    # page pressure: the serial path's victim and retry
+                    lane = pick_victim(self._victim_lanes(),
+                                       max_priority=req.priority)
+                    if lane is None:
+                        break
+                    self._preempt(lane, done, "page pressure")
+                    plan = self._admit_paged_prep(i, req,
+                                                  in_flight=bool(plans))
                 if plan is None:
                     self._queue.push_front(req)
                     stop = True
@@ -1022,10 +1464,12 @@ class Engine:
         if len(plans) == 1:
             # a batch of one is the serial path
             p = plans[0]
-            res = self._prefill_plan_serial(p)
-            self._record_admission(p["req"], p["t0"], time.perf_counter(),
-                                   res[2])
-            self._post_admission(p["slot"], p["req"], res, done)
+            req = p["req"]
+            with self._span("admit", slot=p["slot"], prompt=len(req.prompt),
+                            req=req.trace_track or ""):
+                res = self._prefill_plan_serial(p)
+            self._record_admission(req, p["t0"], time.perf_counter(), res[2])
+            self._post_admission(p["slot"], req, res, done)
             return
 
         B = self.B
@@ -1035,39 +1479,43 @@ class Engine:
         tables_d = self._tensor(tables)
         n_steps = max(p["n_chunks"] for p in plans)
         lane_logits: dict = {}
-        for ci in range(n_steps):
-            active = [p for p in plans if ci < p["n_chunks"]]
-            if ci and any(p["n_chunks"] == ci for p in plans):
-                # a lane just ran out of chunks: park it on the scrap
-                # table, or its ride-along rows would overwrite its KV
-                for p in plans:
-                    if p["n_chunks"] <= ci:
-                        tables[p["slot"]] = 0
-                tables_d = self._tensor(tables)
-            toks = np.zeros((B, C), np.int32)
-            starts = np.zeros(B, np.int32)
-            last = np.zeros(B, np.int32)
-            for p in active:
-                toks[p["slot"]] = p["buf"][ci * C:(ci + 1) * C]
-                starts[p["slot"]] = p["resume"] + ci * C
-                last[p["slot"]] = min(p["s"] - p["resume"] - ci * C, C) - 1
-            logits, self._cache = api.prefill_chunk_paged(
-                self.params, self.cfg, self._cache, tables_d,
-                self._tensor(toks), self._tensor(starts),
-                self._tensor(last), self.qm)
-            self._c_chunk_steps.inc()
-            self._c_prefill_lane_steps.inc(len(active))
-            if len(active) > 1:
-                self._c_prefill_batched.inc()
-            self._h_prefill_batch.observe(len(active))
-            for p in active:
-                if ci == p["n_chunks"] - 1:
-                    lane_logits[p["slot"]] = logits[p["slot"]]
-        t_a1 = time.perf_counter()
-        for p in plans:
-            res = self._admit_paged_finish(p, lane_logits[p["slot"]])
-            self._record_admission(p["req"], p["t0"], t_a1, res[2])
-            self._post_admission(p["slot"], p["req"], res, done)
+        with self._span("admit", lanes=len(plans), batched=True):
+            for ci in range(n_steps):
+                active = [p for p in plans if ci < p["n_chunks"]]
+                if ci and any(p["n_chunks"] == ci for p in plans):
+                    # a lane just ran out of chunks: park it on the scrap
+                    # table, or its ride-along rows would overwrite its KV
+                    for p in plans:
+                        if p["n_chunks"] <= ci:
+                            tables[p["slot"]] = 0
+                    tables_d = self._tensor(tables)
+                toks = np.zeros((B, C), np.int32)
+                starts = np.zeros(B, np.int32)
+                last = np.zeros(B, np.int32)
+                for p in active:
+                    toks[p["slot"]] = p["buf"][ci * C:(ci + 1) * C]
+                    starts[p["slot"]] = p["resume"] + ci * C
+                    last[p["slot"]] = min(p["s"] - p["resume"] - ci * C,
+                                          C) - 1
+                with self._span("prefill_chunk", chunk=ci, paged=True,
+                                prefill_batch=len(active)):
+                    logits, self._cache = api.prefill_chunk_paged(
+                        self.params, self.cfg, self._cache, tables_d,
+                        self._tensor(toks), self._tensor(starts),
+                        self._tensor(last), self.qm)
+                self._c_chunk_steps.inc()
+                self._c_prefill_lane_steps.inc(len(active))
+                if len(active) > 1:
+                    self._c_prefill_batched.inc()
+                self._h_prefill_batch.observe(len(active))
+                for p in active:
+                    if ci == p["n_chunks"] - 1:
+                        lane_logits[p["slot"]] = logits[p["slot"]]
+            t_a1 = time.perf_counter()
+            for p in plans:
+                res = self._admit_paged_finish(p, lane_logits[p["slot"]])
+                self._record_admission(p["req"], p["t0"], t_a1, res[2])
+                self._post_admission(p["slot"], p["req"], res, done)
 
     # ------------------------------------------------------------------
     # Wave scheduler (static batching)
@@ -1094,10 +1542,6 @@ class Engine:
             *svecs, steps_d = self._samp_vectors(list(reqs), [0] * B)
         for r in reqs:
             r.state = RequestState.RUNNING
-        last_logits, cache = api.prefill(self.params, self.cfg,
-                                         self._tensor(toks), self.qm,
-                                         max_len=self.max_len,
-                                         kv_quant=self.kv_quant)
 
         def pick(logits, t):
             """The lanes' tokens of emission index t."""
@@ -1105,19 +1549,29 @@ class Engine:
                 return logits.argmax(dim=-1).to(torch.int32)
             return sample_tokens(logits, *svecs, steps_d + t)
 
-        nxt = pick(last_logits, 0)
-        toks_dev = [nxt]
-        oks_dev = [torch.isfinite(last_logits).all(dim=-1)]
-        pos = S
-        for t in range(1, max_new):
-            logits, cache = api.decode(self.params, self.cfg, cache, nxt,
-                                       pos, self.qm)
-            oks_dev.append(torch.isfinite(logits).all(dim=-1))
-            nxt = pick(logits, t)
-            toks_dev.append(nxt)
-            pos += 1
-        host = torch.stack(toks_dev, dim=1).cpu().numpy()   # one sync
-        okh = torch.stack(oks_dev, dim=1).cpu().numpy()
+        with self._span("wave", batch=B, prompt_len=S, max_new=max_new):
+            with self._span("prefill", batch=B, prompt_len=S):
+                last_logits, cache = api.prefill(
+                    self.params, self.cfg, self._tensor(toks), self.qm,
+                    max_len=self.max_len, kv_quant=self.kv_quant)
+                nxt = pick(last_logits, 0)
+                ok = torch.isfinite(last_logits).all(dim=-1)
+            toks_dev = [nxt]
+            oks_dev = [ok]
+            pos = S
+            with self._span("decode_loop", steps=max(max_new - 1, 0)):
+                for t in range(1, max_new):
+                    poison = self._poison_lane(0)
+                    logits, cache = api.decode(self.params, self.cfg, cache,
+                                               nxt, pos, self.qm)
+                    logits = self._poisoned(logits, poison)
+                    oks_dev.append(torch.isfinite(logits).all(dim=-1))
+                    nxt = pick(logits, t)
+                    toks_dev.append(nxt)
+                    pos += 1
+            with self._span("host_sync", tokens=B * max_new):
+                host = torch.stack(toks_dev, dim=1).cpu().numpy()  # 1 sync
+                okh = torch.stack(oks_dev, dim=1).cpu().numpy()
         t1 = time.time()
         self._c_admitted.inc(B)
         self._c_decode_steps.inc(max(max_new - 1, 0))
@@ -1129,6 +1583,10 @@ class Engine:
                 # non-finite step
                 out = self._trim_eos(host[i, :bad[0]].astype(np.int32))
                 self._c_nan.inc()
+                if self.tracer is not None and r.trace_track is not None:
+                    self.tracer.instant("nan_guard", track=r.trace_track,
+                                        cat="request", lane=i,
+                                        step=int(bad[0]))
                 self._finish(r, out, state=RequestState.FAILED,
                              error=f"non-finite logits in lane {i} at wave "
                                    f"step {int(bad[0])}")
@@ -1156,6 +1614,10 @@ class Engine:
         all-greedy burst runs the plain argmax."""
         burst = 1 if self.eos_id is not None else min(
             self._slots[i].remaining for i in live)
+        if any(self._slots[i].req.deadline_ms is not None for i in live):
+            # deadlines are seen only between bursts: cap the burst so the
+            # check stays timely (deadline-free traffic keeps the burst)
+            burst = min(burst, max(1, self.policy.deadline_burst_cap))
         cur = np.zeros(self.B, np.int32)
         pos = np.zeros(self.B, np.int32)
         for i in live:
@@ -1172,27 +1634,34 @@ class Engine:
                 lanes, [len(sl.toks) if sl is not None else 0
                         for sl in self._slots])
         toks_dev, oks_dev = [], []
-        for _ in range(burst):
-            if paged:
-                logits, self._cache = api.decode_paged(
-                    self.params, self.cfg, self._cache, cur_d, pos_d,
-                    tables_d, self.qm)
-            else:
-                logits, self._cache = api.decode(
-                    self.params, self.cfg, self._cache, cur_d, pos_d,
-                    self.qm)
-            oks_dev.append(torch.isfinite(logits).all(dim=-1))
-            if sampled:
-                cur_d = sample_tokens(logits, *svecs, steps_d)
-                steps_d = steps_d + 1
-            else:
-                cur_d = logits.argmax(dim=-1).to(torch.int32)
-            toks_dev.append(cur_d)
-            pos_d = pos_d + 1
-            self._c_decode_steps.inc()
-            self._c_slot_steps.inc(self.B)
-        host = torch.stack(toks_dev, dim=1).cpu().numpy()   # one sync
-        okh = torch.stack(oks_dev, dim=1).cpu().numpy()
+        with self._span("decode_burst", steps=burst, lanes=len(live)):
+            for _ in range(burst):
+                poison = self._poison_lane(live[0])
+                # the span times the host's launches; the device wait
+                # shows in host_sync
+                with self._span("decode_step", paged=paged):
+                    if paged:
+                        logits, self._cache = api.decode_paged(
+                            self.params, self.cfg, self._cache, cur_d,
+                            pos_d, tables_d, self.qm)
+                    else:
+                        logits, self._cache = api.decode(
+                            self.params, self.cfg, self._cache, cur_d,
+                            pos_d, self.qm)
+                    logits = self._poisoned(logits, poison)
+                    oks_dev.append(torch.isfinite(logits).all(dim=-1))
+                    if sampled:
+                        cur_d = sample_tokens(logits, *svecs, steps_d)
+                        steps_d = steps_d + 1
+                    else:
+                        cur_d = logits.argmax(dim=-1).to(torch.int32)
+                toks_dev.append(cur_d)
+                pos_d = pos_d + 1
+                self._c_decode_steps.inc()
+                self._c_slot_steps.inc(self.B)
+            with self._span("host_sync", steps=burst):
+                host = torch.stack(toks_dev, dim=1).cpu().numpy()  # 1 sync
+                okh = torch.stack(oks_dev, dim=1).cpu().numpy()
         for step in range(burst):
             for i in live:
                 sl = self._slots[i]
@@ -1200,6 +1669,11 @@ class Engine:
                     continue
                 if not okh[i, step]:
                     self._c_nan.inc()
+                    if (self.tracer is not None
+                            and sl.req.trace_track is not None):
+                        self.tracer.instant("nan_guard",
+                                            track=sl.req.trace_track,
+                                            cat="request", lane=i, step=step)
                     self._slots[i] = None
                     self._release_lane(i)
                     self._finish(sl.req, sl.toks, state=RequestState.FAILED,
@@ -1250,23 +1724,30 @@ class Engine:
         *svecs, steps_d = self._samp_vectors(
             [sl.req if sl is not None else None for sl in self._slots],
             steps)
+        poison = self._poison_lane(live[0])
         toks_d = self._tensor(toks)
         # pos / n_valid stay host tensors: the verify forward derives its
         # write slots from them without a device sync
         pos_h, nv_h = torch.from_numpy(pos), torch.from_numpy(n_valid)
-        if self.kv_layout == "paged":
-            logits, self._cache = api.verify_paged(
-                self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
-                self._tables_committed(), self.qm)
-        else:
-            logits, self._cache = api.verify(
-                self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
-                self.qm)
-        out, n_emit, okrow = spec_accept(
-            logits, toks_d[:, 1:], self._tensor(n_valid - 1), *svecs,
-            steps_d)
-        res = torch.cat([out, n_emit[:, None], okrow.to(torch.int32)],
-                        dim=1).cpu().numpy()                  # one sync
+        paged = self.kv_layout == "paged"
+        with self._span("verify_step", lanes=len(live), k=K,
+                        proposed=n_prop, paged=paged):
+            if paged:
+                logits, self._cache = api.verify_paged(
+                    self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
+                    self._tables_committed(), self.qm)
+            else:
+                logits, self._cache = api.verify(
+                    self.params, self.cfg, self._cache, toks_d, pos_h, nv_h,
+                    self.qm)
+            logits = self._poisoned(logits, poison)
+            out, n_emit, okrow = spec_accept(
+                logits, toks_d[:, 1:], self._tensor(n_valid - 1), *svecs,
+                steps_d)
+            with self._span("host_sync", steps=1):
+                res = torch.cat([out, n_emit[:, None],
+                                 okrow.to(torch.int32)],
+                                dim=1).cpu().numpy()          # one sync
         self._c_decode_steps.inc()
         self._c_slot_steps.inc(self.B)
         for i in live:
@@ -1282,6 +1763,11 @@ class Engine:
                 for t in row[:k0]:
                     self._emit(sl, int(t))
                 self._c_nan.inc()
+                if (self.tracer is not None
+                        and sl.req.trace_track is not None):
+                    self.tracer.instant("nan_guard",
+                                        track=sl.req.trace_track,
+                                        cat="request", lane=i, step=k0)
                 self._slots[i] = None
                 self._release_lane(i)
                 self._finish(sl.req, sl.toks, state=RequestState.FAILED,
@@ -1304,6 +1790,26 @@ class Engine:
                 done.append(sl.req)
                 self._slots[i] = None
                 self._release_lane(i)
+
+    def _poison_lane(self, default: int) -> int:
+        """The ``nan_logits`` fault point, reached once a decode or
+        verify step: the lane to poison (the rule's ``lane``, else
+        ``default``), or -1."""
+        if self._faults is None:
+            return -1
+        hit = self._faults.fire("nan_logits")
+        return -1 if hit is None else int(hit.get("lane", default))
+
+    @staticmethod
+    def _poisoned(logits: torch.Tensor, lane: int) -> torch.Tensor:
+        """``logits`` with lane ``lane``'s rows set to NaN (the fault's
+        effect, ahead of the finite guard); unchanged for -1 or a lane
+        the batch does not have."""
+        if not 0 <= lane < logits.shape[0]:
+            return logits
+        logits = logits.clone()
+        logits[lane] = float("nan")
+        return logits
 
     @staticmethod
     def _emit(sl: _Slot, tok: int) -> None:
@@ -1330,7 +1836,8 @@ class Engine:
                 "prefix_hit_tokens": self.prefix_hit_tokens,
                 "blocks_evicted": int(self._c_evicted.value),
                 "spec_proposed_tokens": int(self._c_spec_proposed.value),
-                "spec_accepted_tokens": int(self._c_spec_accepted.value)}
+                "spec_accepted_tokens": int(self._c_spec_accepted.value),
+                "resume_replay_steps": int(self._c_replay_steps.value)}
 
     @staticmethod
     def _acceptance(c: dict) -> float:
@@ -1345,8 +1852,12 @@ class Engine:
 
     def stats(self) -> dict:
         """The schedule counters (cumulative since construction), decode
-        utilization, TTFT / TPOT quantiles in seconds and the terminal-state
-        counts — the JAX engine's keys for the parts this engine has."""
+        utilization, TTFT / TPOT quantiles in seconds, and the lifecycle
+        keys: ``submitted``, ``terminal`` (counts by terminal state; they
+        sum to ``submitted`` at quiescence), ``preemptions``,
+        ``nan_guard_trips``, ``rejected_never_fit`` — the JAX engine's
+        keys for the parts this engine has (it compiles nothing, so no
+        compile counters, and keeps no stats window)."""
         cum = self._counter_values()
         ttft = self._quantiles(self._h_ttft)
         tpot = self._quantiles(self._h_tpot)
@@ -1368,6 +1879,7 @@ class Engine:
                 "submitted": int(self._c_submitted.value),
                 "terminal": {s.value: int(c.value)
                              for s, c in self._c_terminal.items()},
+                "preemptions": int(self._c_preempt.value),
                 "nan_guard_trips": int(self._c_nan.value),
                 "rejected_never_fit": int(self._c_never_fit.value)}
 

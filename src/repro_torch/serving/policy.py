@@ -46,8 +46,9 @@ decides *which* request runs and *when one must stop*:
 
 * :func:`pick_victim` — the preemption choice: among running requests
   below the admission's priority, evict the one with the least progress
-  (fewest emitted tokens — cheapest to re-prefill, especially with the
-  paged prefix cache), ties broken by lane for determinism.
+  (fewest emitted tokens — cheapest to replay; its prompt's pages stay
+  cached for the paged prefix cache), ties broken by lane for
+  determinism.
 
 Everything here is host-side, deterministic, and engine-agnostic — the
 chaos tests drive it directly.
@@ -117,8 +118,9 @@ class SchedulingPolicy:
     priority inversion). A preempted request is requeued with
     exponential backoff (``backoff_base_s * 2**(retries-1)``) at most
     ``max_retries`` times; the next eviction lands it in the terminal
-    ``PREEMPTED`` state. Retries are *cheap*, not free: re-prefill reuses
-    cached prefix pages under the paged layout.
+    ``PREEMPTED`` state. Retries are *cheap*, not free: re-admission
+    reuses cached prefix pages under the paged layout and replays the
+    emitted tokens one decode step each.
 
     ``deadline_burst_cap`` bounds how many decode steps the continuous
     scheduler dispatches back-to-back while any running request carries
@@ -321,7 +323,7 @@ def pick_victim(candidates: Iterable[Tuple[int, object]],
     policy livelock-free: a preemptor can never itself be preempted by
     the request it displaced). Among evictable lanes, pick the lowest
     priority; break ties by least progress (fewest emitted tokens =
-    least re-prefill work thrown away), then lowest lane id. Returns the
+    least replay work), then lowest lane id. Returns the
     lane, or None when nothing is evictable."""
     best = None
     best_key = None

@@ -102,7 +102,8 @@ def test_engine_never_fit_and_counters(artifact):
     assert ok.state.value == "finished" and len(ok.out) == 3
     st = eng.stats()
     assert st["rejected_never_fit"] == 1
-    assert st["terminal"] == {"finished": 1, "failed": 1}
+    assert st["terminal"] == {"finished": 1, "cancelled": 0, "timed_out": 0,
+                              "failed": 1, "preempted": 0, "shed": 0}
     eng._alloc.check()
 
 
@@ -130,10 +131,38 @@ def test_serve_entry_point_on_the_cpu(artifact, capsys):
     assert res["admitted"] == 3 and res["terminal"]["finished"] == 3
 
 
+def test_serve_entry_point_lifecycle_trace_and_metrics(artifact, capsys,
+                                                       tmp_path):
+    """The lifecycle, trace and metrics flags reach the engine: the run
+    finishes under a far deadline and a roomy queue cap, the trace it
+    exports validates, and the Prometheus text carries the lifecycle
+    counters and the launch counts (0 on the CPU)."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_trace
+    trace = tmp_path / "serve_trace.json"
+    assert serve.main(["--artifact", str(artifact), "--device", "cpu",
+                       "--scheduler", "continuous", "--kv-layout", "paged",
+                       "--requests", "3", "--prompt-len", "20",
+                       "--max-new", "4", "--deadline-ms", "1e7",
+                       "--ttft-deadline-ms", "1e7", "--max-retries", "1",
+                       "--no-preemption", "--max-queue-depth", "8",
+                       "--admit-token-budget", "4096", "--trace",
+                       str(trace), "--metrics"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(out[-1])
+    assert res["terminal"]["finished"] == 3 and res["preemptions"] == 0
+    names = {e["name"] for e in validate_trace(str(trace))}
+    assert {"engine_step", "admit", "decode_burst", "request"} <= names
+    text = "\n".join(out)
+    assert "serving_requests_shed_total 0" in text
+    assert 'kernel_launches_total{kernel="mx_gemm_packed"} 0' in text
+
+
 def test_port_imports_no_jax_and_defaults_to_the_card():
     """Every repro_torch module imports without loading jax or any repro.*
     module, and the entry points asked for no device (the engine, both
-    cache constructors, a fresh packed KV cache) raise without a card."""
+    cache constructors, a fresh packed KV cache, the demo engine, the
+    HTTP server and its command line) raise without a card."""
     code = r"""
 import importlib, pkgutil, sys
 import repro_torch
@@ -148,13 +177,20 @@ from repro_torch.core.quantize import QuantMode
 from repro_torch.kernels.packing import PackedKV
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine
+from repro_torch.serving import server
+from repro_torch.launch import serve
 cfg = configs.get_reduced("qwen2-0.5b")
 if not torch.cuda.is_available():
     for name, call in (
             ("Engine", lambda: Engine({}, cfg, QuantMode.off())),
             ("init_cache", lambda: api.init_cache(cfg, 1, 64)),
             ("init_cache_paged", lambda: api.init_cache_paged(cfg, 2, 64)),
-            ("PackedKV.zeros", lambda: PackedKV.zeros((1, 64, 64)))):
+            ("PackedKV.zeros", lambda: PackedKV.zeros((1, 64, 64))),
+            ("demo_engine", lambda: server.demo_engine()),
+            ("Server", lambda: server.Server()),
+            ("server.main", lambda: server.main(["--port", "0"])),
+            ("launch.serve --http", lambda: serve.main(
+                ["--artifact", "absent", "--http", "127.0.0.1:0"]))):
         try:
             call()
         except RuntimeError as e:
