@@ -55,7 +55,17 @@ Phases, in order (each raises on failure; nothing is caught):
    a disconnect-cancel, both deadlines, the ``nan_logits`` and
    ``failed_step`` faults, shedding with Retry-After, clean drain reports
    and a trace that validates (:func:`http_server_phase`); the paged
-   kernels' launch counts in the ``kernels`` line are this phase's.
+   kernels' launch counts in the ``kernels`` line are this phase's;
+7. the LATMiX PTQ pipeline (:func:`ptq_phase`): ``apply_method
+   ('latmix-lu', mxfp4, GPTQ)`` on Qwen2-0.5B at its published widths
+   (random weights, the artifact CLI's calibration), timed by stage; the
+   fold in FP under an orthogonal and under the learned set; GPTQ on the
+   grid and below RTN's error on the captured Hessians; lu and qr for 2
+   steps on the card against the CPU at 2 layers; the artifact exported,
+   verified and served (paged, fused) with every kernel call of a prefill
+   and a decode step held against its plain version. Each entry of the
+   ``kernels`` line also carries ``launches_by_path``, phase 7's under
+   ``ptq``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1810,6 +1820,342 @@ def http_server_phase(torch, dev, seed, card, served, sampled_ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the LATMiX PTQ pipeline at full width, and its artifact served
+# ---------------------------------------------------------------------------
+
+PTQ_STEPS = 120          # (a)'s steps: apply_method's default
+PTQ_CALIB = (3, 8, 64)   # the artifact CLI's calibration: batches, B, S
+CARD_CPU_LAYERS = 2      # (d): Qwen2-0.5B's widths at this depth
+FOLD_BAR = 1e-4          # (b): share of max |logit|, orthogonal set
+TRAJ_BARS = (1e-2, 2e-2)  # (d): relative, first and second loss
+
+
+class StageClock:
+    """Wall seconds of the pipeline's stage functions, each wrapped (card
+    synchronised before and after) for as long as the clock is open; the
+    last call's arguments and result are kept."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.seconds, self.calls, self.started = {}, {}, {}
+
+    def __enter__(self):
+        self.saved = {}
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved[(mod, name)] = fn
+            setattr(mod, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = self.started[name] = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            self.calls[name] = (a, k, out)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def _flat_omega(omega):
+    out = {}
+    for t, sub in omega.items():
+        for k, v in sub["learn"].items():
+            out[f"{t}/{k}"] = v.detach().float().cpu()
+    return out
+
+
+def fold_exactness(torch, api, tfm, folding, QuantMode, params, cfg,
+                   tset, x, card):
+    """(b): the fold in FP at full width. Each role's fold is exact for any
+    invertible T1/T2 (Appendix C): on layer-stacked weights and a stream
+    of rows y, the folded read of T1(y) equals the unfolded read of y
+    (q, k, g, u, the head; v with T2 after it), the folded attention
+    output of T2(o) equals the unfolded one followed by T1, and the folded
+    down projection of T3(m) equals the unfolded one followed by T1: each
+    within FOLD_BAR of its max |value|, under the learned set. The whole
+    model is exact only where the RMSNorms commute with T1: under an
+    orthogonal set without bias (block-Hadamard T1, Hadamard T2) its
+    logits are held within FOLD_BAR of max |logit|; under the learned set
+    a non-orthogonal T1 changes each token's RMS, so the logits move (in
+    the JAX package as here; the student learns through that gap), and
+    the move is reported beside cond(A1)."""
+    with torch.no_grad():
+        pn = api.fold_norms(params, cfg)
+        fl = api.fold(pn, cfg, tset)
+        b, fb = pn["blocks"], fl["blocks"]
+        y = torch.randn(256, cfg.d_model, device=x.device)
+        ty = y @ tset.a1 + tset.v1
+        roles = {}
+
+        def held(name, got, want):
+            roles[name] = ((got - want).abs().max()
+                           / want.abs().max()).item()
+
+        for k in ("wq", "wk", "wg", "wu"):
+            held(k, ty @ fb[k] + fb["b" + k[1]][:, None], y @ b[k])
+        held("head", ty @ fl["head"] + fl["bhead"], y @ pn["head"])
+        L, kvh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+        v = (y @ b["wv"]).reshape(L, -1, kvh, dh)
+        tv = torch.einsum("ltkh,lhj->ltkj", v, tset.a2) + tset.v2[:, None,
+                                                                None]
+        held("wv", (ty @ fb["wv"] + fb["bv"][:, None]).reshape(tv.shape), tv)
+        o = torch.randn(L, 256, cfg.n_heads, dh, device=x.device)
+        to = torch.einsum("ltkh,lhj->ltkj", o, tset.a2) + tset.v2[:, None,
+                                                                None]
+        held("wo", to.reshape(L, 256, -1) @ fb["wo"] + fb["bo"][:, None],
+             o.reshape(L, 256, -1) @ b["wo"] @ tset.a1)
+        m = torch.randn(256, cfg.d_ff, device=x.device)
+        tm = tfm.apply_blockwise(m, tfm.hadamard_matrix(32, m.dtype,
+                                                        m.device))
+        held("wd", tm @ fb["wd"], m @ b["wd"] @ tset.a1)
+        del fl, fb
+
+        ref = api.forward(params, cfg, x)
+        scale = ref.abs().max().item()
+        dev = x.device
+        key = (torch.zeros((), dtype=torch.long, device=dev),
+               torch.full((), 7, dtype=torch.long, device=dev))
+        ortho = folding.TransformSet(
+            a1=tfm.block_diag_init(key, cfg.d_model, 32, "hadamard", 0.0),
+            v1=torch.zeros(cfg.d_model, device=dev),
+            a2=tfm.random_hadamard(key, cfg.head_dim)[None].repeat(
+                cfg.n_layers, 1, 1),
+            v2=torch.zeros((cfg.n_layers, cfg.head_dim), device=dev),
+            t3_block=32)
+        model = {}
+        for name, ts in (("orthogonal", ortho), ("learned", tset)):
+            got = api.forward(api.fold(pn, cfg, ts), cfg, x,
+                              QuantMode.off(32))
+            model[name] = (got - ref).abs().max().item() / scale
+            del got
+        cond = torch.linalg.cond(tset.a1).item()
+    log(f"phase 7 (b) fold in FP, learned set, each role against the "
+        f"unfolded one (share of max |value|, bar {FOLD_BAR}): "
+        + json.dumps(roles) + f"; cond(A1) {cond:.3f} ({card})")
+    log(f"phase 7 (b) whole model, FP logits against the unfolded model's "
+        f"(share of max |logit| {scale:.4e}): orthogonal set "
+        f"{model['orthogonal']:.3e} (bar {FOLD_BAR}); learned set "
+        f"{model['learned']:.3e} (RMSNorm against T1, no bar) ({card})")
+    bad = {k: v for k, v in roles.items() if not v <= FOLD_BAR}
+    if bad or not model["orthogonal"] <= FOLD_BAR:
+        raise AssertionError(f"phase 7 (b): a fold is not exact: {bad}, "
+                             f"orthogonal model {model['orthogonal']:.3e}")
+    return roles, model, cond
+
+
+def gptq_checks(torch, gptq, mxcfg, folded, stats, qparams, card):
+    """(c): every layer's wq, wg and wd after GPTQ sits on the MX grid
+    (RTN of it is itself) and its error tr((W−Q)ᵀ H (W−Q)) on the captured
+    Hessian is at most RTN's."""
+    worst = {}
+    with torch.no_grad():
+        for name, key in (("wq", "h_attn_in"), ("wg", "h_ffn_in"),
+                          ("wd", "h_ffn_down")):
+            w = folded["blocks"][name].double()
+            q = qparams["blocks"][name]
+            if not torch.equal(gptq.rtn_matrix(q, mxcfg), q.float()):
+                raise AssertionError(f"phase 7 (c): GPTQ's {name} is off "
+                                     f"the grid")
+            h = getattr(stats, key)
+            r = gptq.rtn_matrix(folded["blocks"][name], mxcfg).double()
+
+            def err(e):
+                return (e * (h @ e)).sum(dim=(-2, -1))
+
+            eg, er = err(w - q.double()), err(w - r)
+            if not bool((eg <= er).all()):
+                worse = (eg > er).nonzero().flatten().tolist()
+                raise AssertionError(f"phase 7 (c): GPTQ's {name} error "
+                                     f"above RTN's at layers {worse}")
+            worst[name] = (eg / er).max().item()
+    log(f"phase 7 (c) GPTQ on the grid at every layer; worst error "
+        f"GPTQ/RTN on the captured Hessian: " + json.dumps(worst)
+        + f" ({card})")
+    return worst
+
+
+def card_against_cpu(torch, dev, seed, configs, transformer, api, latmix,
+                     calib, card):
+    """(d): Qwen2-0.5B's widths at CARD_CPU_LAYERS layers, the same random
+    weights, one calibration batch: ``learn_transforms`` for 2 steps of
+    lu and of qr on the card and on the CPU (``matrix_exp`` and ``inv``
+    on the device; ``slogdet``, which only the kron kind's regularizer
+    takes, is held on a perturbed d_model-wide kron Ω: 1e-4 relative). The
+    first losses within TRAJ_BARS[0] relative: A differs between the
+    devices in its last bits (qr's ``matrix_exp`` most), which moves a few
+    MX codes of the student at these widths (2.3e-3 seen for qr); the
+    second within TRAJ_BARS[1]; the final Ω within 2 × lr × steps (after
+    the first update the two runs part as two runs on inputs an ulp apart
+    do)."""
+    import dataclasses
+
+    from repro_torch import devices
+    from repro_torch.core import transforms as tfm
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"),
+                              n_layers=CARD_CPU_LAYERS)
+    gen = torch.Generator().manual_seed(seed + 23)
+    host = transformer.init(gen, cfg, device="cpu")
+    spec = tfm.TransformSpec(kind="kron", d=cfg.d_model)
+    kron = {"learn": {k: torch.eye(n) + 0.05 * torch.randn(n, n,
+                                                           generator=gen)
+                      for k, n in (("K1", 28), ("K2", 32))}, "fixed": {}}
+    vols = [tfm.loss_vol(devices.tree_to(kron, w), spec).item()
+            for w in (dev, torch.device("cpu"))]
+    if not abs(vols[0] - vols[1]) <= 1e-4 * abs(vols[1]):
+        raise AssertionError(f"phase 7 (d): kron volume term card {vols[0]} "
+                             f"against CPU {vols[1]}")
+    cpu = torch.device("cpu")
+    out = {}
+    for kind in ("lu", "qr"):
+        lx = latmix.LatmixConfig(kind=kind, steps=2)
+        runs = []
+        for where in (dev, cpu):
+            t0 = time.perf_counter()
+            om, _, hist = latmix.learn_transforms(
+                api.fold_norms(devices.tree_to(host, where), cfg), cfg, lx,
+                calib[:1])
+            runs.append((_flat_omega(om), hist, time.perf_counter() - t0))
+        (oc, hc, tc), (oh, hh, th) = runs
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(hc, hh)]
+        dom = max((oc[k] - oh[k]).abs().max().item() for k in oh)
+        out[kind] = dict(loss_rel=rel, omega_max_abs=dom, card_s=tc,
+                         cpu_s=th)
+        log(f"phase 7 (d) {kind}: losses card {[h['loss'] for h in hc]} "
+            f"cpu {[h['loss'] for h in hh]} (relative {rel}); final Ω max "
+            f"|Δ| {dom:.3e} (bar {2 * lx.lr * lx.steps}); {tc:.1f} s on the "
+            f"card ({card}), {th:.1f} s on the CPU; kron volume term card "
+            f"{vols[0]:.6e} CPU {vols[1]:.6e}")
+        if not (rel[0] <= TRAJ_BARS[0] and rel[1] <= TRAJ_BARS[1]
+                and dom <= 2 * lx.lr * lx.steps):
+            raise AssertionError(f"phase 7 (d): {kind} on the card parts "
+                                 f"from the CPU past the bars")
+    return out
+
+
+def ptq_phase(torch, dev, seed: int, card: str):
+    """Phase 7: the LATMiX PTQ pipeline on Qwen2-0.5B at its published
+    widths (random weights from the seed), calibrated on the port's
+    ``SyntheticLM`` at the artifact CLI's defaults, then its artifact
+    served through the kernels. (a) ``apply_method('latmix-lu', mxfp4,
+    steps=PTQ_STEPS, weight_quant='gptq')`` with the wall time of each
+    stage; the task loss falls and the Fig. 3 metrics are finite; (b) the
+    fold in FP (:func:`fold_exactness`); (c) GPTQ against RTN
+    (:func:`gptq_checks`); (d) the card against the CPU at 2 layers
+    (:func:`card_against_cpu`); (e) export, ``verify_artifact``, and
+    ``Engine.from_artifact`` (fused, continuous, paged, mxfp8 KV, 4 lanes)
+    on phase 3's four prompts with the launch counts zeroed just before
+    and read just after, the first prefill and one decode step held call
+    by call against the plain versions, and the greedy tokens against the
+    reference backend's. Returns the launch counts of (e)."""
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, verify_artifact
+    from repro_torch.core import folding, gptq, latmix, ptq
+    from repro_torch.core import transforms as tfm
+    from repro_torch.core.quantize import QuantMode
+    from repro_torch.data import synthetic
+    from repro_torch.models import api, transformer
+    from repro_torch.serving.engine import Engine, Request
+
+    t_phase = time.perf_counter()
+    log(f"phase 7 on {card}")
+    cfg = configs.get("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    params = transformer.init(gen, cfg, device=dev)
+    n, B, S = PTQ_CALIB
+    src = synthetic.make_source(cfg, B, S, 0)
+    calib = [src.batch(i) for i in range(n)]
+
+    # (a) the pipeline, stage by stage
+    stamps = []
+    clock = StageClock(torch, ((latmix, "learn_transforms"),
+                               (gptq, "capture_hessians"),
+                               (gptq, "quantize_weights_gptq")))
+    torch.cuda.reset_peak_memory_stats()
+    with clock:
+        res = ptq.apply_method(
+            "latmix-lu", params, cfg, calib, fmt="mxfp4", steps=PTQ_STEPS,
+            weight_quant="gptq",
+            log=lambda s: (stamps.append(time.perf_counter()), log(s)))
+    hist = res.history
+    learn_s = clock.seconds["learn_transforms"]
+    step_s = (stamps[-1] - stamps[0]) / (hist[-1]["step"] - hist[0]["step"])
+    omega = clock.calls["learn_transforms"][2][0]
+    lx = ptq._lat_cfg("latmix-lu", "mxfp4", PTQ_STEPS, False)
+    metrics = latmix.transform_metrics(omega, cfg, lx)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        art = pathlib.Path(tmp) / "qwen2-0.5b-latmix-lu-mxfp4"
+        export_artifact(res, cfg, art)
+        export_s = time.perf_counter() - t0
+        log("phase 7 (a) latmix-lu mxfp4 gptq, " + json.dumps({
+            "steps": PTQ_STEPS, "calibration": list(PTQ_CALIB),
+            "learn_s": learn_s, "mean_step_s": step_s,
+            "teacher_and_init_s": (stamps[0] - step_s
+                                   - clock.started["learn_transforms"]),
+            "hessian_capture_s": clock.seconds["capture_hessians"],
+            "gptq_s": clock.seconds["quantize_weights_gptq"],
+            "export_s": export_s,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+            + f" ({card})")
+        log("phase 7 (a) history: " + json.dumps(hist))
+        log("phase 7 (a) transform metrics: " + json.dumps(metrics))
+        tasks = [h["task"] for h in hist]
+        if not min(tasks[-3:]) < tasks[0]:
+            raise AssertionError("phase 7 (a): the task loss did not fall")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError("phase 7 (a): a transform metric is not "
+                                 "finite")
+
+        # (b)
+        x = torch.as_tensor(calib[0]["inputs"], device=dev).long()
+        fold_exactness(torch, api, tfm, folding, QuantMode, params, cfg,
+                       res.tset, x, card)
+        del params
+
+        # (c)
+        gargs = clock.calls["quantize_weights_gptq"][0]
+        gptq_checks(torch, gptq, ptq._mx_cfg("mxfp4"), gargs[0], gargs[2],
+                    res.params, card)
+        del gargs, clock, res
+
+        # (e) the artifact served
+        rep = verify_artifact(art)
+        log(f"phase 7 (e) verify_artifact: {json.dumps(rep)}")
+        prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+        kw = dict(scheduler="continuous", kv_layout="paged", batch_size=4,
+                  max_len=2048, kv_cache="mxfp8", device=dev)
+        eng, reqs, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
+                                  tag=" ptq", **kw)
+        check_paged_run(eng, lp, st, cfg.n_layers, " ptq")
+        sparams, _, qm = eng.params, eng.cfg, eng.qm
+        paged_teacher_forced(torch, transformer, sparams, cfg, qm, eng,
+                             prompts[0], dev, " ptq")
+        ref_eng = Engine(sparams, cfg, qm.with_backend("ref"), **kw)
+        ref_reqs = [Request(prompt=p, max_new=32) for p in prompts]
+        ref_eng.generate(ref_reqs)
+        agree = sum(int(a == b) for r, s in zip(reqs, ref_reqs)
+                    for a, b in zip(r.out.tolist(), s.out.tolist()))
+        log(f"phase 7 (e) paged greedy tokens fused == ref: {agree}/"
+            f"{sum(len(r.out) for r in reqs)}")
+        del eng, ref_eng
+
+    # (d)
+    card_against_cpu(torch, dev, seed, configs, transformer, api, latmix,
+                     calib, card)
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s wall on {card}")
+    return lp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1847,6 +2193,8 @@ def main(argv=None) -> int:
     sampled = sampling_and_spec(torch, dev, args.seed, card, **served)
     launches["server"] = http_server_phase(torch, dev, args.seed, card,
                                            served, sampled)
+    del served, sampled
+    launches["ptq"] = ptq_phase(torch, dev, args.seed, card)
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points
@@ -1859,7 +2207,9 @@ def main(argv=None) -> int:
         path = e.get("path", path_of[e["name"]])
         e.update(route="cuda", source=SOURCE[e["name"]],
                  replaces=TPU_KERNEL[e["name"]], path=path,
-                 launches=launches[path][e["name"]])
+                 launches=launches[path][e["name"]],
+                 launches_by_path={p: n.get(e["name"], 0)
+                                   for p, n in launches.items()})
     log(f"card: {card}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Architecture config registry: ``get(name)`` / ``get_reduced(name)``.
 
 The port carries the configs of the slices it serves (Qwen2-0.5B,
-Qwen2-7B)."""
+Qwen2-7B) and TinyLlama-1.1B, the artifact CLI's default."""
 from __future__ import annotations
 
 import importlib
@@ -9,7 +9,7 @@ import importlib
 from .base import ArchConfig  # noqa
 
 _ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "qwen2-0-5b": "qwen2_0_5b",
-            "qwen2-7b": "qwen2_7b"}
+            "qwen2-7b": "qwen2_7b", "tinyllama-1.1b": "tinyllama_1_1b"}
 
 
 def canonical(name: str) -> str:

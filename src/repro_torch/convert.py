@@ -1,4 +1,5 @@
-"""Parameter trees from the JAX package's layout to the port's.
+"""Parameter trees (and transform sets) from the JAX package's layout to
+the port's.
 
 The JAX package keeps parameters as nested dicts of arrays with
 layer-stacked leaves, and packed weights as ``PackedWeight`` nodes; the port
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch import devices
+from repro_torch.core.folding import TransformSet
 from repro_torch.kernels.packing import PackedWeight
 
 
@@ -32,3 +34,21 @@ def params_from_numpy(tree, device=None):
             torch.from_numpy(np.array(get("scales_e8m0"), np.uint8)).to(device),
             str(get("fmt", "mxfp4")), str(get("dtype", "float32")))
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def tset_from_numpy(tset, device=None):
+    """A JAX ``TransformSet`` (or a dict with the same fields: ``a1``,
+    ``v1``, ``a2``, ``v2``, ``t3_block``) -> the port's, its arrays as
+    float32 tensors on ``device`` (the card unless the caller names
+    another)."""
+    device = devices.resolve(device)
+    get = tset.get if isinstance(tset, dict) else (
+        lambda k: getattr(tset, k))
+
+    def arr(k):
+        a = get(k)
+        return None if a is None else torch.from_numpy(
+            np.array(a, np.float32)).to(device)
+
+    return TransformSet(a1=arr("a1"), v1=arr("v1"), a2=arr("a2"),
+                        v2=arr("v2"), t3_block=int(get("t3_block")))

@@ -1,5 +1,6 @@
-"""Microscaling (MX) quantization in PyTorch — the forward half of
-``repro.core.mx`` (serving needs no straight-through gradient yet).
+"""Microscaling (MX) quantization in PyTorch — the port of
+``repro.core.mx``, with the straight-through estimator that lets the PTQ
+pipeline learn transformations through the quantizer.
 
     s_i = 2^( floor(log2(max_{j in I_i} |x_j|)) - r_max )
     Q(x)_j = s_i * Q_e(x_j / s_i)
@@ -136,10 +137,7 @@ def compute_scales(x: torch.Tensor, cfg: MXConfig) -> torch.Tensor:
     raise ValueError(f"unknown scale_mode {cfg.scale_mode}")
 
 
-def quantize(x: torch.Tensor, cfg: MXConfig | None = None) -> torch.Tensor:
-    """MX fake-quantize ``x`` along its last axis (values land exactly on
-    the element grid times the block scale)."""
-    cfg = cfg or MXConfig()
+def _quantize_value(x: torch.Tensor, cfg: MXConfig) -> torch.Tensor:
     B = cfg.block_size
     *lead, d = x.shape
     scales = compute_scales(x, cfg)
@@ -147,6 +145,48 @@ def quantize(x: torch.Tensor, cfg: MXConfig | None = None) -> torch.Tensor:
     z = xb / scales[..., None].to(x.dtype)
     q = _snap_to_grid(z, cfg.element.grid)
     return (q * scales[..., None].to(x.dtype)).reshape(*lead, d)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    """Fake quantization whose backward is the identity (straight-through:
+    d quantize / dx = I)."""
+
+    @staticmethod
+    def forward(ctx, x, cfg):
+        return _quantize_value(x, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def quantize(x: torch.Tensor, cfg: MXConfig | None = None, *,
+             ste: bool = True) -> torch.Tensor:
+    """MX fake-quantize ``x`` along its last axis (values land exactly on
+    the element grid times the block scale). With ``ste`` the gradient
+    passes straight through; otherwise none flows (the snap's derivative
+    is zero almost everywhere)."""
+    cfg = cfg or MXConfig()
+    if ste and torch.is_grad_enabled() and x.requires_grad:
+        return _QuantizeSTE.apply(x, cfg)
+    return _quantize_value(x, cfg)
+
+
+def quantization_mse(x: torch.Tensor,
+                     cfg: MXConfig | None = None) -> torch.Tensor:
+    """Mean squared quantization error of x under cfg (Definition 3.2 with
+    T = identity)."""
+    q = _quantize_value(x, cfg or MXConfig())
+    return torch.mean((x - q) ** 2)
+
+
+def blockwise_error(x: torch.Tensor, q: torch.Tensor,
+                    block_size: int) -> torch.Tensor:
+    """Per-MX-block squared error E_B^i (Sec. 3.1): the mean over the
+    elements of each block position and every leading index."""
+    *lead, d = x.shape
+    e = ((x - q) ** 2).reshape(*lead, d // block_size, block_size)
+    return torch.mean(e, dim=(-1,) + tuple(range(len(lead))))
 
 
 def encode(x: torch.Tensor, cfg: MXConfig | None = None):

@@ -1,4 +1,5 @@
-"""Model API of the port, dispatching on ``cfg.family``.
+"""Model API of the port, dispatching on ``cfg.family``: serving, the PTQ
+folds and the losses.
 
 The port serves the dense family; the other families of the JAX package
 (moe, hybrid, ssm, encoder, vlm) come with later slices and raise here."""
@@ -89,3 +90,59 @@ def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
     """Multi-token speculative verify step over a paged pool."""
     return module_for(cfg).verify_paged(params, cfg, cache, inputs, pos,
                                         n_valid, block_tables, qm)
+
+
+# ---------------------------------------------------------------------------
+# PTQ folds
+# ---------------------------------------------------------------------------
+
+def fold_norms(params, cfg: ArchConfig):
+    return module_for(cfg).fold_norms(params, cfg)
+
+
+def fold(params, cfg: ArchConfig, tset):
+    return module_for(cfg).fold(params, cfg, tset)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-level CE: logits (..., V), labels (...) int; the mean over
+    tokens, or over the tokens where ``mask`` is set."""
+    lf = logits.float()
+    nll = (torch.logsumexp(lf, dim=-1)
+           - torch.gather(lf, -1, labels.long()[..., None])[..., 0])
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict,
+            qm: QuantMode = QuantMode.off()) -> torch.Tensor:
+    """Next-token loss of the dense family. batch: {"inputs": (B, S)
+    tokens, "labels": (B, S)[, "mask": (B, S)]}."""
+    module_for(cfg)
+    logits = forward(params, cfg, batch["inputs"], qm)
+    return cross_entropy(logits, batch["labels"], batch.get("mask"))
+
+
+def kl_divergence(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
+                  temperature: float = 1.0) -> torch.Tensor:
+    """KL(teacher || student) averaged over tokens (Eq. 8)."""
+    t = teacher_logits.float() / temperature
+    s = student_logits.float() / temperature
+    return torch.mean(torch.sum(
+        torch.softmax(t, dim=-1) * (torch.log_softmax(t, dim=-1)
+                                    - torch.log_softmax(s, dim=-1)), dim=-1))
+
+
+def perplexity(params, cfg: ArchConfig, tokens: torch.Tensor,
+               qm: QuantMode = QuantMode.off()) -> float:
+    """exp(mean NLL) of next-token prediction over a (B, S) token batch."""
+    with torch.no_grad():
+        logits = forward(params, cfg, tokens[:, :-1], qm)
+        return float(torch.exp(cross_entropy(logits, tokens[:, 1:])))

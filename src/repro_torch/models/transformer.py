@@ -1,5 +1,6 @@
 """Dense decoder-only transformer (llama-style: pre-RMSNorm, GQA + RoPE,
-SwiGLU) — the serving part of ``repro.models.transformer``.
+SwiGLU) — the port of ``repro.models.transformer``: serving, and the norm
+and transform folds of the PTQ pipeline.
 
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``blocks/wq`` is ``(L, d, q_dim)``, a ``PackedWeight`` when served from an
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import folding as fold_lib
 from repro_torch.core.quantize import QuantMode, qlinear
 from repro_torch.kernels import ops
 from repro_torch.kernels.packing import PackedKV, PagedKV
@@ -495,3 +497,56 @@ def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
         x = ffn_sublayer(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm), cache
+
+
+# ---------------------------------------------------------------------------
+# PTQ integration: norm folding + transform folding (Appendix C)
+# ---------------------------------------------------------------------------
+
+def fold_norms(params, cfg: ArchConfig):
+    """Fold the RMSNorm γ's into the adjacent linears (exact). The head
+    becomes its own leaf (a tied head is untied)."""
+    p = dict(params)
+    b = dict(p["blocks"])
+    b["ln1"], (b["wq"], b["wk"], b["wv"]) = fold_lib.fold_norm_into(
+        b["ln1"], b["wq"], b["wk"], b["wv"])
+    b["ln2"], (b["wg"], b["wu"]) = fold_lib.fold_norm_into(
+        b["ln2"], b["wg"], b["wu"])
+    p["ln_f"], (p["head"],) = fold_lib.fold_norm_into(
+        p["ln_f"], head_matrix(params, cfg))
+    p["blocks"] = b
+    return p
+
+
+def fold(params, cfg: ArchConfig, tset: fold_lib.TransformSet):
+    """Fold T1/T2 (and the T3 inverse) into the weights; differentiable —
+    the LATMiX student runs this inside its loss. Requires
+    :func:`fold_norms` first. Every linear but ``wd`` gains a bias, and the
+    head gains ``bhead``."""
+    if not cfg.embed_inputs:
+        raise ValueError("the stub-frontend families' input_transform fold "
+                         "is not ported (dense token models only)")
+    p = dict(params)
+    b = dict(p["blocks"])
+    a1i = tset.a1_inv
+    a2i = tset.a2_inv()
+    b["wq"], b["bq"] = fold_lib.fold_read(b["wq"], b.get("bq"), a1i, tset.v1)
+    b["wk"], b["bk"] = fold_lib.fold_read(b["wk"], b.get("bk"), a1i, tset.v1)
+    bv = b.get("bv")
+    if bv is None:
+        bv = torch.zeros_like(b["wk"][..., 0, :])
+    b["wv"], b["bv"] = fold_lib.fold_value(b["wv"], bv, a1i, tset.v1,
+                                           tset.a2, tset.v2, cfg.n_kv_heads)
+    b["wo"], b["bo"] = fold_lib.fold_attn_out(b["wo"], None, tset.a1, a2i,
+                                              tset.v2, cfg.n_heads)
+    b["wg"], b["bg"] = fold_lib.fold_read(b["wg"], None, a1i, tset.v1)
+    b["wu"], b["bu"] = fold_lib.fold_read(b["wu"], None, a1i, tset.v1)
+    wd, _ = fold_lib.fold_write(b["wd"], None, tset.a1)
+    if tset.t3_block:
+        wd = fold_lib.fold_t3(wd, tset.t3_block)
+    b["wd"] = wd
+    p["embed"] = fold_lib.fold_embed(p["embed"], tset.a1, tset.v1)
+    p["head"], p["bhead"] = fold_lib.fold_read(head_matrix(params, cfg), None,
+                                               a1i, tset.v1)
+    p["blocks"] = b
+    return p

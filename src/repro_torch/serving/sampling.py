@@ -31,10 +31,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.prng import (fold_in, prng_key, random_bits,
+                                   uniform_from_bits)
+
 NEG_INF = -1e30  # the models' masking constant
 _MIN_TEMP = 1e-4
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
 
@@ -68,71 +69,8 @@ GREEDY = SamplingParams()
 
 
 # ---------------------------------------------------------------------------
-# jax.random's threefry2x32 keys and draws
+# jax.random's draws (the keys and bits are in core/prng.py)
 # ---------------------------------------------------------------------------
-
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds) of the count pair ``(x1, x2)``
-    under the key ``(k1, k2)``: int64 tensors holding uint32 values,
-    broadcast together. Returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    y0 = (x1 + ks[0]) & _M32
-    y1 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            y0 = (y0 + y1) & _M32
-            y1 = _rotl(y1, r) ^ y0
-        y0 = (y0 + ks[(i + 1) % 3]) & _M32
-        y1 = (y1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return y0, y1
-
-
-def prng_key(seed) -> tuple:
-    """``jax.random.PRNGKey`` of uint32 seeds: the key ``(0, seed)`` (a
-    tensor of seeds gives a batch of keys)."""
-    s = torch.as_tensor(seed).long() & _M32
-    return torch.zeros_like(s), s
-
-
-def fold_in(key: tuple, data) -> tuple:
-    """``jax.random.fold_in``: the hash of the count pair ``(0, data)``
-    under ``key``. ``data`` broadcasts against the key's batch shape."""
-    k1, k2 = key
-    d = torch.as_tensor(data, device=k1.device).long() & _M32
-    return threefry2x32(k1, k2, torch.zeros_like(d), d)
-
-
-def random_bits(key: tuple, n: int | None = None) -> torch.Tensor:
-    """``jax.random.bits`` (uint32, partitionable scheme) of shape () when
-    ``n`` is None, else (n,), for each key of the batch: the hash of the
-    64-bit iota split into its (hi, lo) words, the two output words
-    xor-ed. Shape ``key batch + (n,)``, int64."""
-    k1, k2 = key
-    if n is None:
-        lo = torch.zeros_like(k1)
-    else:
-        k1, k2 = k1[..., None], k2[..., None]
-        lo = torch.arange(n, device=k1.device, dtype=torch.int64)
-    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return y0 ^ y1
-
-
-def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0
-                      ) -> torch.Tensor:
-    """``jax.random.uniform`` on [minval, 1) in float32 from its bits: the
-    top 23 bits as the mantissa of a float in [1, 2), minus 1, scaled and
-    clamped below at minval."""
-    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-         - 1.0)
-    if minval == 0.0:
-        return f
-    scale = float(np.float32(1.0) - np.float32(minval))
-    return torch.clamp_min(f * scale + minval, minval)
-
 
 def uniform(key: tuple) -> torch.Tensor:
     """One float32 uniform on [0, 1) per key (``jax.random.uniform(key)``)."""

@@ -575,3 +575,20 @@ def test_verify_against_sequential_decode(cuda_device, tmp_path, k,
     assert ops.launches["mx_flash_decode"] == 0
     assert ops.launches["mx_flash_decode_paged"] == 0
     assert (ver - seq).abs().max() <= 1e-2 * seq.abs().max()
+
+
+@pytest.mark.gpu
+def test_ste_quantizer_on_the_card_matches_the_cpu(cuda_device):
+    """The straight-through MX quantizer of the PTQ student on the card:
+    its forward bit for bit the CPU's in every format (NVFP4 included),
+    its gradient the identity."""
+    from repro_torch.core import mx
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(64, 896, generator=g) * 3
+    for c in [*(mx.MXConfig(fmt=f) for f in MX_FMTS), mx.NVFP4]:
+        xd = x.to(cuda_device).requires_grad_(True)
+        q = mx.quantize(xd, c)
+        assert torch.equal(q.detach().cpu(), mx.quantize(x, c))
+        w = torch.randn(x.shape, generator=g).to(cuda_device)
+        (grad,) = torch.autograd.grad((q * w).sum(), xd)
+        assert torch.equal(grad, w)
