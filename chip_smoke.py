@@ -65,7 +65,20 @@ Phases, in order (each raises on failure; nothing is caught):
    verified and served (paged, fused) with every kernel call of a prefill
    and a decode step held against its plain version. Each entry of the
    ``kernels`` line also carries ``launches_by_path``, phase 7's under
-   ``ptq``.
+   ``ptq``;
+8. the MoE family (:func:`moe_phase`): Qwen1.5-MoE-A2.7B at its published
+   widths, its depth cut to 4 of 24 layers (random weights, RTN mxfp4
+   with T3, exported and loaded), served on the three paths and under
+   spec k = 4 on both continuous layouts, with launch counts per path
+   (an expert-stacked einsum is one packed GEMM launch), every kernel
+   call of a prefill and a decode step per layout held against its plain
+   version, fused against reference logits and tokens, the memory rise of
+   a fused expert call below the dense f32 bytes of its weight, and two
+   prefills bitwise equal; then Moonlight-16B-A3B's widths at 2 of 48
+   layers, one prefill and decode step per layout held call by call; and
+   the expert-stacked GEMM timed at the decode and wave-prefill shapes
+   (``launches_by_path`` under ``moe``, ``moe_wave``,
+   ``moe_continuous``).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -82,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -182,15 +196,15 @@ def device_split(torch, fn, iters: int, warmup: int = 3,
                          f"a multiple of the {iters} calls")
 
 
-def measure(torch, fn, iters: int):
+def measure(torch, fn, iters: int, exact: bool = True):
     """(device ms per call, ms per call with the wrapper included). The
     kernels of one stream cannot take longer than the wall time of their
     calls, so a device reading above the events' figure by more than 2% is
     a bad record: it is logged and both are taken again, and three bad
-    pairs in a row fail the run."""
+    pairs in a row fail the run. ``exact`` as in :func:`device_ms`."""
     for _ in range(3):
         wall = cuda_ms(torch, fn, iters)
-        dev = device_ms(torch, fn, iters)
+        dev = device_ms(torch, fn, iters, exact=exact)
         if dev <= 1.02 * wall:
             return dev, wall
         log(f"  discarded: device reading {dev:.4f} ms per call above the "
@@ -199,11 +213,14 @@ def measure(torch, fn, iters: int):
                          "time: the profiler's record is not usable")
 
 
-def timed(torch, label, kernel, plain, library, iters, plain_iters):
+def timed(torch, label, kernel, plain, library, iters, plain_iters,
+          plain_exact=True):
     """Time a kernel call, its plain version and (where there is one) the
-    library call both ways; logs them, returns the JSON fields."""
+    library call both ways; logs them, returns the JSON fields.
+    ``plain_exact=False`` takes the plain version's device events as
+    recorded (see :func:`device_ms`)."""
     ms, ms_w = measure(torch, kernel, iters)
-    pl, pl_w = measure(torch, plain, plain_iters)
+    pl, pl_w = measure(torch, plain, plain_iters, exact=plain_exact)
     lib, lib_w = (None, None) if library is None else measure(
         torch, library, iters)
     fmt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
@@ -751,10 +768,12 @@ def prefill_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
 
 def serve(torch, Engine, Request, art, prompts, cfg, tag="", **kw):
     """One served run of ``prompts`` x 32 greedy tokens with the launch
-    counts zeroed just before and read just after. Returns (engine,
-    requests, launches, stats)."""
+    counts zeroed just before and read just after; ``art`` is an artifact
+    directory (``Engine.from_artifact``) or the (params, cfg, qm) it
+    loaded. Returns (engine, requests, launches, stats)."""
     from repro_torch.kernels import ops
-    eng = Engine.from_artifact(art, backend="fused", **kw)
+    eng = (Engine(*art, backend="fused", **kw) if isinstance(art, tuple)
+           else Engine.from_artifact(art, backend="fused", **kw))
     reqs = [Request(prompt=p, max_new=32) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2156,6 +2175,330 @@ def ptq_phase(torch, dev, seed: int, card: str):
     return lp
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE family at Qwen1.5-MoE-A2.7B's and Moonlight's widths
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 4           # of Qwen1.5-MoE-A2.7B's 24: the smoke's time
+MOONLIGHT_LAYERS = 2     # of Moonlight-16B-A3B's 48
+MOE_SPEC_K = 4
+
+
+def moe_gemms_per_forward(cfg) -> int:
+    """Packed GEMM launches of one MoE forward: q, k, v, o, the router and
+    the three expert-stacked einsums per layer (one launch each), and the
+    shared experts' three linears where the config has them."""
+    return cfg.n_layers * (8 + (3 if cfg.n_shared_experts else 0))
+
+
+def pack_tree(params, fmt="mxfp4"):
+    """The packed serving tree of RTN weights, in memory: what
+    ``export_artifact`` then ``load_artifact`` give (every weight key
+    packed, the rest as is)."""
+    from repro_torch.core.gptq import WEIGHT_KEYS
+    from repro_torch.kernels.packing import PackedWeight
+
+    def visit(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: visit(k, v) for k, v in leaf.items()}
+        if name in WEIGHT_KEYS and leaf.ndim >= 2:
+            return PackedWeight.from_dense(leaf, fmt)
+        return leaf
+    return visit("", params)
+
+
+def expert_gemm_case(torch, dev, gen, E, M, K, N, t3):
+    """The expert-stacked mx_gemm_packed at one shape: one launch, checked
+    against its plain version (and a second call, bitwise), timed beside
+    the plain version and f32 ``torch.bmm`` over the dequantised weights;
+    returns its ``kernels`` entry (path ``moe``)."""
+    from repro_torch.core import mx as mxlib
+    from repro_torch.kernels import ops, packing, ref
+    x = torch.randn(E, M, K, generator=gen, device=dev)
+    w = torch.randn(E, K, N, generator=gen, device=dev) / K ** 0.5
+    pw = packing.PackedWeight.from_dense(w)
+    del w
+    n0 = ops.launches["mx_gemm_packed"]
+    y = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    one = ops.launches["mx_gemm_packed"] - n0
+    y2 = ops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    yp = ref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    torch.cuda.synchronize()
+    err = (y - yp).abs().amax(dim=(1, 2))
+    tol = 1e-4 * yp.abs().amax(dim=(1, 2))
+    label = f"expert gemm E={E} M={M} K={K} N={N} t3={t3}"
+    log(f"{label}: launches per call {one}; max_abs_err "
+        f"{err.max().item():.3e} (worst expert's share of its max |y| "
+        f"{(err / tol * 1e-4).max().item():.3e}, bar 1e-4); two calls "
+        f"bitwise equal: {torch.equal(y, y2)}")
+    if one != 1:
+        raise AssertionError(f"{label}: {one} launches for one call")
+    if not (err <= tol).all():
+        raise AssertionError(f"{label}: disagrees with its plain version")
+    if not torch.equal(y, y2):
+        raise AssertionError(f"{label}: not repeatable")
+    del y, y2, yp
+    xq = mxlib.quantize(x)
+    wd = pw.to_dense()
+    t = timed(torch, label,
+              lambda: ops.mx_gemm_packed(x, pw.codes_packed,
+                                         pw.scales_e8m0, t3=t3),
+              lambda: ref.mx_matmul_packed_ref(
+                  x, pw.codes_packed, pw.scales_e8m0, t3=t3),
+              lambda: torch.bmm(xq, wd), 20, 5,
+              # the plain version's device events at E = 60 came one over
+              # a multiple of the calls in one run on an H100 (116 for 5
+              # calls, four records in a row); its sum is taken as recorded
+              plain_exact=False)
+    nbytes = E * (M * K * 4 + K * N // 2 + K * N // 32 + M * N * 4)
+    b, by = bound_ms(nbytes, 2.0 * E * M * N * K, PEAK_FP8)
+    log(f"{label}: bound_ms {b:.4f} ({by}), share of the bound "
+        f"{b / t['ms']:.3f}")
+    return {"name": "mx_gemm_packed", "shape": f"E={E} M={M} K={K} N={N} "
+            f"t3={t3} (expert-stacked)", "path": "moe",
+            "max_abs_err": err.max().item(), **t, "bound_ms": b,
+            "bound_by": by}
+
+
+def moe_no_dense_weight(torch, qeinsum, params, cfg, qm, dev):
+    """The port's counterpart of the JAX package's
+    test_fused_lowering_has_no_dense_weight: around one fused
+    expert-stacked einsum at the decode shape (4 groups x capacity 8 rows
+    per expert), the rise of the allocator's peak stays below the dense
+    f32 bytes of the stacked weight."""
+    from repro_torch.models import moe
+    w = params["blocks"]["eg"][0]
+    E, K, N = w.shape
+    C = moe.capacity(cfg, 1)
+    x = torch.randn(4, E, C, K, device=dev)
+    fused = qm.with_backend("fused")
+    qeinsum("gecd,edf->gecf", x, w, fused, "ffn_in")      # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = qeinsum("gecd,edf->gecf", x, w, fused, "ffn_in")
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    dense = E * K * N * 4
+    log(f"phase 8 (d) no dense weight: a fused expert-stacked einsum at "
+        f"x {tuple(x.shape)} raised the peak by {rise} bytes; the dense f32 "
+        f"weight is {dense} bytes; output {tuple(y.shape)}")
+    if not rise < dense:
+        raise AssertionError("phase 8: the fused expert einsum "
+                             "materialized a dense weight")
+
+
+def moe_spec(torch, Engine, Request, SpecConfig, moe, params, cfg, qm,
+             seed, dev, common, paths, card):
+    """Spec k = MOE_SPEC_K on both continuous layouts against non-spec
+    greedy on phase 5's repetitive prompts (a first divergence must sit
+    within VERIFY_BAR of max |logit| of a top-2 tie)."""
+    from repro_torch.kernels import ops
+    fused = qm.with_backend("fused")
+    rp = rep_prompts(np.random.default_rng(seed + 5), cfg.vocab_size)
+    page = cfg.attn_chunk * max(1, -(-64 // cfg.attn_chunk))
+    for name in ("continuous", "paged"):
+        eng = Engine(params, cfg, fused, **paths[name], **common)
+        base, base_rate = _run(torch, eng, [Request(prompt=p, max_new=32)
+                                            for p in rp])
+        eng = Engine(params, cfg, fused, spec=SpecConfig(k=MOE_SPEC_K),
+                     **paths[name], **common)
+        ops.reset_launches()
+        outs, rate = _run(torch, eng, [Request(prompt=p, max_new=32)
+                                       for p in rp])
+        st = eng.stats()
+        log(f"phase 8 (b) spec k={MOE_SPEC_K} {name}: proposed "
+            f"{st['spec_proposed_tokens']}, accepted "
+            f"{st['spec_accepted_tokens']}, {st['decode_steps']} verify "
+            f"steps for 128 tokens; {rate:.1f} tok/s against non-spec "
+            f"{base_rate:.1f} on {card}; launches {dict(ops.launches)}")
+        div = [(i, int(np.flatnonzero(a != b)[0]))
+               for i, (a, b) in enumerate(zip(outs, base)) if (a != b).any()]
+        if div:
+            i, t = div[0]
+            margin, scale = top2_margin(torch, moe, params, cfg, fused,
+                                        eng.kv_quant, rp[i], base[i], t,
+                                        name, page, dev)
+            log(f"phase 8 (b) spec {name}: {len(div)} of 4 requests part "
+                f"from non-spec greedy; first: request {i} at token {t}, "
+                f"top-2 margin {margin / scale:.3e} of max |logit|")
+            if not margin <= VERIFY_BAR * scale:
+                raise AssertionError(f"phase 8 spec {name}: tokens part "
+                                     f"from greedy outside a top-2 tie")
+        else:
+            log(f"phase 8 (b) spec {name}: tokens equal non-spec greedy on "
+                f"all 4 requests")
+
+
+def moonlight_path(torch, dev, seed, card):
+    """Moonlight-16B-A3B's widths (64 experts, top-6, no shared experts, no
+    QKV bias, router N = 64) cut to MOONLIGHT_LAYERS: random weights, RTN
+    mxfp4 with T3, packed in memory; one prefill and one decode step per
+    layout with every kernel call held against its plain version."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import ptq
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    full = configs.get("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, n_layers=MOONLIGHT_LAYERS)
+    log(f"phase 8 (f) moonlight: reduced: depth {cfg.n_layers} of "
+        f"{full.n_layers} layers (published widths otherwise)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    res = ptq.apply_method("rtn", moe.init(gen, cfg, device=dev), cfg,
+                           fmt="mxfp4")
+    params = pack_tree(res.params)
+    qm = dataclasses.replace(res.qm, t3_block=32)
+    del res
+    torch.cuda.synchronize()
+    log(f"phase 8 (f) moonlight: init + RTN + pack "
+        f"{time.perf_counter() - t0:.1f} s")
+    kv = KVCacheQuant("mxfp8")
+    prompt = traffic(np.random.default_rng(seed), cfg.vocab_size)[0]
+    fused = qm.with_backend("fused")
+    page = cfg.attn_chunk * max(1, -(-64 // cfg.attn_chunk))
+    for name, run in (
+            ("paged", lambda q: prefill_and_step(
+                torch, moe, params, cfg, q, kv, page, cfg.attn_chunk,
+                prompt, dev)),
+            ("contiguous", lambda q: contiguous_prefill_and_step(
+                torch, moe, params, cfg, q, kv, prompt, dev))):
+        worst = teacher_forced(torch, ops, run, fused)
+        log(f"phase 8 (f) moonlight {name} teacher-forced, worst error per "
+            f"kernel call: " + json.dumps(worst))
+    del params
+
+
+def moe_phase(torch, dev, seed: int, card: str):
+    """Phase 8: Qwen1.5-MoE-A2.7B at its published widths (d_model 2048, 16
+    heads over 16 KV heads of 128, QKV bias, 60 routed experts of 1408,
+    top-4, 4 shared experts fused to 5632, vocab 151936, capacity factor
+    1.25, 32 routing groups), depth cut to MOE_LAYERS: random weights, RTN
+    mxfp4 with T3, exported and loaded, served by the engine (4 lanes,
+    max_len 2048, mxfp8 KV, fused) on phase 3's traffic three ways
+    (``Engine.from_artifact`` for the first), (a) with the launch counts of
+    each path; (b) spec; (c) a prefill and a decode step per layout held
+    call by call, fused against reference logits and paged tokens; (d) no
+    dense weight; (e) two prefills bitwise equal; (f) Moonlight; (g) the
+    expert-stacked GEMM timed. Returns ({path: launches}, kernels
+    entries)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.core import ptq
+    from repro_torch.core.quantize import qeinsum
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.policy import SpecConfig
+
+    t_phase = time.perf_counter()
+    log(f"phase 8 on {card}")
+    full = configs.get("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    L = cfg.n_layers
+    gemms = moe_gemms_per_forward(cfg)
+    log(f"e2e qwen2-moe: reduced: depth {L} of {full.n_layers} layers "
+        f"(published widths otherwise)")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    t0 = time.perf_counter()
+    res = ptq.apply_method("rtn", moe.init(gen, cfg, device=dev), cfg,
+                           fmt="mxfp4")
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    common = dict(batch_size=4, max_len=2048, kv_cache="mxfp8", device=dev)
+    paths = {"wave": dict(scheduler="wave", kv_layout="contiguous"),
+             "continuous": dict(scheduler="continuous",
+                                kv_layout="contiguous"),
+             "paged": dict(scheduler="continuous", kv_layout="paged")}
+    launches = {}
+    tag = " qwen2-moe"
+    with tempfile.TemporaryDirectory() as tmp:
+        art = pathlib.Path(tmp) / "qwen2-moe-a2.7b-mxfp4"
+        export_artifact(res, cfg, art)
+        del res
+        torch.cuda.synchronize()
+        log(f"e2e qwen2-moe: init + RTN + export "
+            f"{time.perf_counter() - t0:.1f} s ({L} layers)")
+        # (a) the three paths: the first through the artifact
+        eng, rw, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
+                                tag=tag, **paths["wave"], **common)
+        params, qm = eng.params, eng.qm
+    check_contiguous_launches(lw, st, L, gemms, 1 + st["decode_steps"],
+                              "moe wave")
+    launches["moe_wave"] = lw
+    del eng
+    served = (params, cfg, qm)
+    eng, rc, lc, st = serve(torch, Engine, Request, served, prompts, cfg,
+                            tag=tag, **paths["continuous"], **common)
+    check_contiguous_launches(
+        lc, st, L, gemms, st["prefill_chunk_steps"] + st["decode_steps"],
+        "moe continuous")
+    launches["moe_continuous"] = lc
+    del eng
+    eng, rp_, lp, st = serve(torch, Engine, Request, served, prompts, cfg,
+                             tag=tag, **paths["paged"], **common)
+    check_paged_run(eng, lp, st, L, tag)
+    launches["moe"] = lp
+    kv_quant, page = eng.kv_quant, eng.page_size
+    del eng
+    # (b)
+    moe_spec(torch, Engine, Request, SpecConfig, moe, params, cfg, qm, seed,
+             dev, common, paths, card)
+    # (c) call by call, and fused against reference
+    p0 = prompts[0]
+    fused = qm.with_backend("fused")
+    paged_teacher_forced(torch, moe, params, cfg, qm,
+                         types.SimpleNamespace(page_size=page,
+                                               kv_quant=kv_quant), p0, dev,
+                         tag)
+    worst = teacher_forced(torch, ops, lambda q: contiguous_prefill_and_step(
+        torch, moe, params, cfg, q, kv_quant, p0, dev), fused)
+    log("e2e qwen2-moe contiguous teacher-forced, worst error per kernel "
+        "call: " + json.dumps(worst))
+    ref_eng = Engine(params, cfg, qm.with_backend("ref"), **paths["paged"],
+                     **common)
+    ref_reqs = [Request(prompt=p, max_new=32) for p in prompts]
+    ref_eng.generate(ref_reqs)
+    agree = sum(int(a == b) for r, s in zip(rp_, ref_reqs)
+                for a, b in zip(r.out.tolist(), s.out.tolist()))
+    log(f"e2e qwen2-moe: paged greedy tokens fused == ref: {agree}/"
+        f"{sum(len(r.out) for r in rp_)}")
+    del ref_eng
+    # (d)
+    moe_no_dense_weight(torch, qeinsum, params, cfg, qm, dev)
+    # (e) the combine and every kernel repeat bit for bit
+    toks = torch.as_tensor(p0[None], device=dev)
+    a, _ = moe.prefill(params, cfg, toks, fused, max_len=2048,
+                       kv_quant=kv_quant)
+    b, _ = moe.prefill(params, cfg, toks, fused, max_len=2048,
+                       kv_quant=kv_quant)
+    torch.cuda.synchronize()
+    log(f"phase 8 (e): two prefills of a {len(p0)}-token prompt bitwise "
+        f"equal: {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError("phase 8: two prefills differ")
+    del params, served, a, b
+    torch.cuda.empty_cache()
+    # (f)
+    moonlight_path(torch, dev, seed, card)
+    torch.cuda.empty_cache()
+    # (g) the expert-stacked GEMM at the decode (M = 4 groups x capacity 8)
+    # and wave-prefill (16 groups x capacity 32) shapes
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    E, d, f = full.n_experts, full.d_model, full.d_ff
+    entries = [expert_gemm_case(torch, dev, gen, E, M, K, N, t3)
+               for M, K, N, t3 in ((32, d, f, False), (32, f, d, True),
+                                   (512, d, f, False))]
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s wall on {card}")
+    return launches, entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2195,6 +2538,9 @@ def main(argv=None) -> int:
                                            served, sampled)
     del served, sampled
     launches["ptq"] = ptq_phase(torch, dev, args.seed, card)
+    moe_launches, moe_entries = moe_phase(torch, dev, args.seed, card)
+    launches.update(moe_launches)
+    entries += moe_entries
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

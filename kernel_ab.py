@@ -54,6 +54,20 @@ def _unsplit_adapter(fn, part_at: int):
     return call
 
 
+# the packed GEMM's signature before the expert count E (after ``y``)
+UNBATCHED_GEMM = [_C] * 5 + [_I] * 5 + [_C]
+
+
+def _unbatched_adapter(fn):
+    """Call an older packed-GEMM entry (no E) with the current arguments;
+    only E = 1 has a meaning there."""
+    def call(*a):
+        if a[5] != 1:
+            raise ValueError("this build predates expert-stacked calls")
+        return fn(*(a[:5] + a[6:]))
+    return call
+
+
 def compile_tree(build, csrc: pathlib.Path, tag: str) -> dict:
     """{entry: C function} of the sources ``csrc`` has; prints ptxas's
     report."""
@@ -82,13 +96,17 @@ def compile_tree(build, csrc: pathlib.Path, tag: str) -> dict:
             continue
         _, sym, argtypes = build._ENTRIES[entry]
         fn = getattr(ctypes.CDLL(str(procs[src][1])), sym)
-        unsplit = (entry in UNSPLIT_DECODE and "nsplit"
-                   not in (csrc / f"{src}.cu").read_text())
+        text = (csrc / f"{src}.cu").read_text()
+        unsplit = entry in UNSPLIT_DECODE and "nsplit" not in text
+        unbatched = entry == "mx_gemm_packed" and "int E," not in text
         if unsplit:
             argtypes = UNSPLIT_DECODE[entry][0]
+        if unbatched:
+            argtypes = UNBATCHED_GEMM
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[entry] = (_unsplit_adapter(fn, UNSPLIT_DECODE[entry][1])
-                      if unsplit else fn)
+                      if unsplit else _unbatched_adapter(fn) if unbatched
+                      else fn)
     return fns
 
 

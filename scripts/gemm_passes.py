@@ -85,7 +85,7 @@ def main() -> int:
             def call(fn=fn, name=name):
                 rc = fn(x.data_ptr(), xq.data_ptr(),
                         pw.codes_packed.data_ptr(), pw.scales_e8m0.data_ptr(),
-                        y.data_ptr(), M, N, K, 0, 0,
+                        y.data_ptr(), 1, M, N, K, 0, 0,
                         torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
                     raise RuntimeError(f"{name}: launch failed ({rc})")

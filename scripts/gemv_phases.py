@@ -115,7 +115,7 @@ def main() -> int:
             def call(fn=fn):
                 rc = fn(x.data_ptr(), xq.data_ptr(),
                         pw.codes_packed.data_ptr(), pw.scales_e8m0.data_ptr(),
-                        y.data_ptr(), 4, N, K, 0, int(t3),
+                        y.data_ptr(), 1, 4, N, K, 0, int(t3),
                         torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
                     raise RuntimeError(f"{name}: launch failed ({rc})")

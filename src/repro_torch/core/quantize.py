@@ -1,5 +1,5 @@
-"""Quantized execution mode: MX linears with a kernel-dispatch backend
-(the serving part of ``repro.core.quantize``).
+"""Quantized execution mode: MX linears and expert-batched einsums with a
+kernel-dispatch backend (the serving part of ``repro.core.quantize``).
 
 ``backend="ref"``: plain fake-quant path — a ``PackedWeight`` is decoded
 in place and the GEMM runs dense. ``backend="fused"``: when the weight is
@@ -7,12 +7,16 @@ a ``PackedWeight`` whose layout matches the activation config and the
 call site quantizes, the matmul runs through ``ops.mx_gemm_packed`` (the
 packed-native GEMM kernel on the card, its plain version on the CPU);
 ``role='ffn_down'`` with ``t3_block=32`` folds the online T3
-block-Hadamard into the kernel's activation-quantize prologue. Anything
-off the kernel contract takes the reference path.
+block-Hadamard into the kernel's activation-quantize prologue;
+``qeinsum`` runs an expert-stacked ``PackedWeight`` (E, K, N) through the
+same kernel with the expert axis as a grid axis (one launch). Anything off
+the kernel contract takes the reference path. Each decision is counted in
+``ops.quant_paths``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -158,7 +162,9 @@ def qlinear(x: torch.Tensor, w, b: Optional[torch.Tensor], qm: QuantMode,
     with x (*lead, M, K)); b (N,) or None. ``role='ffn_down'`` applies the
     online T3 block-Hadamard to the activation before quantization."""
     if _mode_fusable(w, qm, role) and _fusable_shapes(x, w):
+        ops.record_quant_path("qlinear", "fused", role)
         return _fused_linear(x, w, b, qm, role)
+    ops.record_quant_path("qlinear", "ref", role)
     on_grid = _packed_on_grid(w, qm)
     w = maybe_dense(w)
     if _fused_t3(qm, role):
@@ -171,3 +177,62 @@ def qlinear(x: torch.Tensor, w, b: Optional[torch.Tensor], qm: QuantMode,
     wq = w if on_grid else _maybe_quant_weight(w, qm)
     y = xq @ wq
     return y if b is None else y + b
+
+
+def _parse_expert_spec(spec: str):
+    """Recognize expert-batched einsums of the shape ``(..., E, ..., K),
+    (E, K, N) -> (..., E, ..., N)`` — the MoE dispatch and combine specs
+    'gecd,edf->gecf' and 'gecf,efd->gecd'.
+
+    Returns (expert-axis position in the activation, activation rank the
+    spec demands), or None if the spec does not match the packed-kernel
+    contract. Callers also check the actual x rank, so the fused path
+    rejects exactly what the reference einsum rejects."""
+    try:
+        ins, out = spec.replace(" ", "").split("->")
+        in1, in2 = ins.split(",")
+    except ValueError:
+        return None
+    if len(in2) != 3 or len(set(in1)) != len(in1):
+        return None
+    e, k, n = in2
+    if in1[-1] != k or e not in in1[:-1] or n in in1:
+        return None
+    if out != in1[:-1] + n:
+        return None
+    return in1.index(e), len(in1)
+
+
+def qeinsum(spec: str, x: torch.Tensor, w, qm: QuantMode,
+            role: str = "") -> torch.Tensor:
+    """Quantized einsum for expert-batched weights, e.g. 'gecd,edf->gecf'.
+
+    The activation is quantized along its last axis, the weight along the
+    contraction axis (its second-to-last). ``w`` may be a stacked
+    ``PackedWeight`` (E, K, N): under ``backend='fused'`` the activation's
+    expert axis moves to the front, the other axes fold into the rows, and
+    ``ops.mx_gemm_packed`` runs the E products in one launch."""
+    if _mode_fusable(w, qm, role) and w.ndim == 3:
+        parsed = _parse_expert_spec(spec)
+        if (parsed is not None and x.ndim == parsed[1]
+                and x.shape[parsed[0]] == w.shape[0]
+                and x.shape[-1] == w.shape[-2]):
+            ops.record_quant_path("qeinsum", "fused", role)
+            e_pos = parsed[0]
+            xe = torch.movedim(x, e_pos, 0)           # (E, *rest, K)
+            rest = tuple(xe.shape[1:-1])
+            y = ops.mx_gemm_packed(
+                xe.reshape(w.shape[0], math.prod(rest), w.shape[-2]),
+                w.codes_packed, w.scales_e8m0, w.fmt,
+                t3=_fused_t3(qm, role))
+            y = y.reshape(w.shape[0], *rest, w.shape[-1])
+            return torch.movedim(y, 0, e_pos).to(_out_dtype(x, w))
+    ops.record_quant_path("qeinsum", "ref", role)
+    on_grid = _packed_on_grid(w, qm)
+    w = maybe_dense(w)
+    if _fused_t3(qm, role):
+        x = tfm.apply_blockwise(
+            x, tfm.hadamard_matrix(qm.t3_block, x.dtype, x.device))
+    xq = _maybe_quant_act(x, qm)
+    wq = w if on_grid else _maybe_quant_weight(w, qm)
+    return torch.einsum(spec, xq, wq)

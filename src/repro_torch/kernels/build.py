@@ -85,7 +85,7 @@ _I = ctypes.c_int
 # entry point -> (source, C symbol, argument types)
 _ENTRIES = {
     "mx_gemm_packed": ("mx_gemm", "mx_gemm_packed_launch",
-                       [_C] * 5 + [_I] * 5 + [_C]),
+                       [_C] * 5 + [_I] * 6 + [_C]),
     "mx_gemm": ("mx_matmul", "mx_gemm_launch", [_C] * 5 + [_I] * 4 + [_C]),
     "mx_quant": ("mx_quant", "mx_quant_launch", [_C] * 3 + [_I] * 3 + [_C]),
     "hadamard_quant": ("mx_quant", "hadamard_quant_launch",

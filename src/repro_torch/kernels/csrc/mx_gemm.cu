@@ -5,8 +5,11 @@
 // (src/repro/kernels/mx_matmul.py:170, its ``pallas_call`` at :203).
 //
 // Inputs: x (M, K) f32; w packed (K/2, N) u8, code 2i in the low nibble of
-// byte i along K; w scales (K/32, N) u8 E8M0; y (M, N) f32. Two kernels,
-// chosen by M:
+// byte i along K; w scales (K/32, N) u8 E8M0; y (M, N) f32 — or E of each,
+// stacked contiguously (the expert-batched weights of the MoE family, which
+// the JAX package maps with ``jax.vmap``): one launch of each kernel runs
+// the E products, the expert a grid axis. Two kernels, chosen by M (the rows
+// of one expert):
 //
 //   * M > MAX_M (prefill): the wgmma tile of mx_gemm.cuh after its
 //     activation-quantize pass; this layout's power-of-two scales are folded
@@ -160,8 +163,11 @@ inline size_t smem_bytes(int kbb) {
          sizeof(Tables);
 }
 
-// y (M, N) for the column tile blockIdx.x, rows MT * blockIdx.z ...; the
-// cluster (1, gridDim.y, 1) holds the K splits. For each chunk of the split
+// y (M, N) for the column tile blockIdx.x, rows MT * blockIdx.z ...; with
+// ``kExperts``, rows MT * (blockIdx.z % mt) ... of expert blockIdx.z / mt
+// (x, the weights and y at its offsets; a separate instantiation, so the
+// 2-D call keeps its code and registers: the expert's offsets spilled
+// there); the cluster (1, gridDim.y, 1) holds the K splits. For each chunk of the split
 // (at most KCH MX blocks), the block copies the chunk's weight tile (MX
 // blocks x 16 byte rows x 64 columns, and the E8M0 lines) into shared
 // memory, all copies in flight at once. Warp (g, jw) takes rows MW * g .. MW
@@ -171,11 +177,12 @@ inline size_t smem_bytes(int kbb) {
 // by chunk, into row ``part`` of the reduction buffer. ``prequant``: x is
 // already Q_mx(x). ``kVec``: N % 16 == 0 and 16-byte aligned weights, so a
 // group's 16 columns are one 16-byte line of each byte row.
-template <bool kVec>
+template <bool kVec, bool kExperts>
 __global__ void __launch_bounds__(NT, 4)
-gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-            const uint8_t* __restrict__ ws, float* __restrict__ y, int M,
-            int N, int K, int fmt, int t3, int kbb, int prequant) {
+gemv_kernel(const float* __restrict__ x_all,
+            const uint8_t* __restrict__ wp_all,
+            const uint8_t* __restrict__ ws_all, float* __restrict__ y_all,
+            int M, int N, int K, int fmt, int t3, int kbb, int prequant) {
   extern __shared__ __align__(16) uint4 smem4[];
   const int kch = min(kbb, KCH), nj = (kch + KW - 1) / KW;
   uint4* wt = smem4;                                  // [kch][16][WROW]
@@ -194,7 +201,17 @@ gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   const int cg = lane % CG, sub = lane / CG, part = jw * SUBS + sub;
   const int nkb = K / 32, kb0 = blockIdx.y * kbb;
   const int nkbs = min(kbb, nkb - kb0);               // MX blocks here
-  const int nc0 = blockIdx.x * CG * 16, m0 = blockIdx.z * MT;
+  const int mt = (M + MT - 1) / MT;
+  const int ex = kExperts ? (int)blockIdx.z / mt : 0;
+  const int nc0 = blockIdx.x * CG * 16;
+  const int m0 = (kExperts ? (int)blockIdx.z % mt : (int)blockIdx.z) * MT;
+  const float* __restrict__ x =
+      kExperts ? x_all + (size_t)ex * M * K : x_all;
+  const uint8_t* __restrict__ wp =
+      kExperts ? wp_all + (size_t)ex * (K / 2) * N : wp_all;
+  const uint8_t* __restrict__ ws =
+      kExperts ? ws_all + (size_t)ex * (K / 32) * N : ws_all;
+  float* __restrict__ y = kExperts ? y_all + (size_t)ex * M * N : y_all;
   const int center = fmt_center(fmt);
   const uint32_t zw = (uint32_t)(center | (center << 4)) * 0x01010101u;
   build_tables(tab, fmt, tid);
@@ -360,15 +377,15 @@ gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kExperts>
 cudaError_t launch_gemv(cudaStream_t s, dim3 grid, int nsplit,
                         const float* x, const uint8_t* wp, const uint8_t* ws,
                         float* y, int M, int N, int K, int fmt, int t3,
                         int kbb, int prequant) {
   const size_t shm = smem_bytes(kbb);
   cudaError_t e = cudaFuncSetAttribute(
-      gemv_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
+      gemv_kernel<kVec, kExperts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -382,12 +399,13 @@ cudaError_t launch_gemv(cudaStream_t s, dim3 grid, int nsplit,
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gemv_kernel<kVec>, x, wp, ws, y, M, N, K,
-                            fmt, t3, kbb, prequant);
+  return cudaLaunchKernelEx(&cfg, gemv_kernel<kVec, kExperts>, x, wp, ws,
+                            y, M, N, K, fmt, t3, kbb, prequant);
 }
 
 int launch(const void* x, void* scratch, const void* wp, const void* ws,
-           void* y, int M, int N, int K, int fmt, int t3, void* stream) {
+           void* y, int E, int M, int N, int K, int fmt, int t3,
+           void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -395,7 +413,7 @@ int launch(const void* x, void* scratch, const void* wp, const void* ws,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const int ncg = (N + 15) / 16, nkb = K / 32;
-  const int ct = (ncg + CG - 1) / CG, mt = (M + MT - 1) / MT;
+  const int ct = (ncg + CG - 1) / CG, mt = (M + MT - 1) / MT * E;
   // one MX block per warp of a split where K allows, at most a cluster's
   // worth of splits, and no more splits than about two blocks per SM need
   // (past that, the waves of blocks cost more than the longer splits)
@@ -406,8 +424,8 @@ int launch(const void* x, void* scratch, const void* wp, const void* ws,
   const int prequant = kbb > MAX_INKERNEL_KBB;
   const float* xin = static_cast<const float*>(x);
   if (prequant) {
-    e = mxgemm::launch_act<false>(s, xin, static_cast<float*>(scratch), M, K,
-                                  fmt, t3);
+    e = mxgemm::launch_act<false>(s, xin, static_cast<float*>(scratch),
+                                  E * M, K, fmt, t3);
     if (e != cudaSuccess) return (int)e;
     xin = static_cast<const float*>(scratch);
   }
@@ -417,31 +435,38 @@ int launch(const void* x, void* scratch, const void* wp, const void* ws,
   const uint8_t* w8 = static_cast<const uint8_t*>(wp);
   const uint8_t* s8 = static_cast<const uint8_t*>(ws);
   float* yf = static_cast<float*>(y);
-  e = vec ? launch_gemv<true>(s, grid, nsplit, xin, w8, s8, yf, M, N, K, fmt,
-                              t3, kbb, prequant)
-          : launch_gemv<false>(s, grid, nsplit, xin, w8, s8, yf, M, N, K,
-                               fmt, t3, kbb, prequant);
+  auto run = [&](auto fn) {
+    return fn(s, grid, nsplit, xin, w8, s8, yf, M, N, K, fmt, t3, kbb,
+              prequant);
+  };
+  e = E > 1 ? (vec ? run(launch_gemv<true, true>)
+                   : run(launch_gemv<false, true>))
+            : (vec ? run(launch_gemv<true, false>)
+                   : run(launch_gemv<false, false>));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace mxgemv
 
-// x (M, K) f32, 16-byte aligned; scratch: at least 2*M*K bytes for M > 16
-// (the bf16 activations of the tile path), at least 4*M*K bytes for M <= 16
-// (the encoded f32 activations of the small-M kernel's prepass); wp (K/2, N)
-// u8, ws (K/32, N) u8, y (M, N) f32. K % 32 == 0. Returns cudaGetLastError()
-// after the launches.
+// E experts (1 for a plain 2-D call), each contiguous after the one before:
+// x (E, M, K) f32, 16-byte aligned; scratch: at least 2*E*M*K bytes for M >
+// 16 (the bf16 activations of the tile path), at least 4*E*M*K bytes for M
+// <= 16 (the encoded f32 activations of the small-M kernel's prepass); wp (E,
+// K/2, N) u8, ws (E, K/32, N) u8, y (E, M, N) f32. K % 32 == 0. Returns
+// cudaGetLastError() after the launches.
 extern "C" int mx_gemm_packed_launch(const void* x, void* xq, const void* wp,
-                                     const void* ws, void* y, int M, int N,
-                                     int K, int fmt, int t3, void* stream) {
-  if (M <= 0 || N <= 0 || K % 32 != 0 || fmt_bits(fmt) != 4)
+                                     const void* ws, void* y, int E, int M,
+                                     int N, int K, int fmt, int t3,
+                                     void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0 || K % 32 != 0 || fmt_bits(fmt) != 4
+      || (M + mxgemv::MT - 1) / mxgemv::MT * E > 65535)
     return (int)cudaErrorInvalidValue;
   if (M <= mxgemv::MAX_M)
-    return mxgemv::launch(x, xq, wp, ws, y, M, N, K, fmt, t3, stream);
+    return mxgemv::launch(x, xq, wp, ws, y, E, M, N, K, fmt, t3, stream);
   mxgemm::PackedE8M0Weights w{static_cast<const uint8_t*>(wp),
                               static_cast<const uint8_t*>(ws)};
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0
                    && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
-  return mxgemm::launch(x, xq, w, vec, y, M, N, K, fmt, t3, stream);
+  return mxgemm::launch(x, xq, w, vec, y, E, M, N, K, fmt, t3, stream);
 }

@@ -64,6 +64,16 @@
 // product would need a per-block rescale of both operands' partial sums on
 // the CUDA cores, which costs about as much as the tensor-core work saved.
 //
+// Expert-stacked calls (the MoE family's ``qeinsum``): E independent GEMMs
+// of the same (M, K, N), each operand contiguous so expert e sits at a fixed
+// stride, run as one launch of each pass. The activation pass takes the E·M
+// rows at once (it works row by row); the tile takes e as grid z: its TMA
+// maps view A as (E·M, K) and the weights as (E·K/2, N) and (E·K/32, N),
+// and a block adds e's row offset to its coordinates. A box near an expert's
+// last row or K stage reads rows of the next expert; those land in output
+// rows masked by the expert's own M, or in K values the decode and the
+// wgmmas of the stage skip.
+//
 // Numerics: fixed K order, no float atomics, so repeated calls are bitwise
 // equal; the products differ from the f32 plain versions only in summation
 // order (within each k16 step the tensor core's, then stage by stage).
@@ -441,12 +451,21 @@ struct PackedE8M0Weights {
   // per bank (entry e of bank l at e * 32 + l): conflict-free lookups
   static constexpr int TAB = 256 * 32;
 
-  cudaError_t maps(CUtensorMap* tw, CUtensorMap* ts, int N, int K) const {
-    cudaError_t e = tensor_map(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wp, N, K / 2,
-                               N, BN, RAW_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+  // the E experts' weights as one (E·K/2, N) and one (E·K/32, N) matrix
+  cudaError_t maps(CUtensorMap* tw, CUtensorMap* ts, int N, int K,
+                   int E) const {
+    cudaError_t e = tensor_map(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wp, N,
+                               (uint64_t)E * (K / 2), N, BN, RAW_ROWS,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != cudaSuccess) return e;
-    return tensor_map(ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, ws, N, K / 32, N, BN,
-                      2, CU_TENSOR_MAP_SWIZZLE_NONE);
+    return tensor_map(ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, ws, N,
+                      (uint64_t)E * (K / 32), N, BN, 2,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+
+  // expert e's weights (its byte rows start at row e·K/2 of the maps)
+  __device__ PackedE8M0Weights expert(int e, int N, int K) const {
+    return {wp + (size_t)e * (K / 2) * N, ws + (size_t)e * (K / 32) * N};
   }
 
   // Every thread of the block; ``t16`` is 16 floats of free shared memory.
@@ -521,12 +540,19 @@ struct ByteF32Weights {
   static constexpr int SC_BYTES = 2 * BN * 4;
   static constexpr int TAB = 256;      // every byte code's value
 
-  cudaError_t maps(CUtensorMap* tw, CUtensorMap* ts, int N, int K) const {
-    cudaError_t e = tensor_map(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wc, N, K, N,
-                               BN, RAW_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t maps(CUtensorMap* tw, CUtensorMap* ts, int N, int K,
+                   int E) const {
+    cudaError_t e = tensor_map(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wc, N,
+                               (uint64_t)E * K, N, BN, RAW_ROWS,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != cudaSuccess) return e;
-    return tensor_map(ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N, K / 32,
-                      4ull * N, BN, 2, CU_TENSOR_MAP_SWIZZLE_NONE);
+    return tensor_map(ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N,
+                      (uint64_t)E * (K / 32), 4ull * N, BN, 2,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+
+  __device__ ByteF32Weights expert(int e, int N, int K) const {
+    return {wc + (size_t)e * K * N, ws + (size_t)e * (K / 32) * N};
   }
 
   __device__ void build_table(float* tab, float*, int fmt, int tid) const {
@@ -582,15 +608,16 @@ constexpr size_t smem_bytes() {
 }
 
 // Y (M, N) f32 = A (M, K) bf16 @ W, tile (blockIdx.y, blockIdx.x) of BM
-// (128 or 256) rows x BN columns; ``tma`` maps A (BM x 64 boxes, 128-byte
-// swizzle) and, with ``kTma``, the weight bytes and scales (W::maps);
-// without it the producer warp stores those.
+// (128 or 256) rows x BN columns of expert blockIdx.z (A, W and Y at that
+// expert's offset); ``tma`` maps A (BM x 64 boxes, 128-byte swizzle) and,
+// with ``kTma``, the weight bytes and scales (W::maps); without it the
+// producer warp stores those.
 template <class W, int BM, bool kTma>
 __global__ void __launch_bounds__(NT, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tma,
             const __grid_constant__ CUtensorMap tmw,
-            const __grid_constant__ CUtensorMap tms, W w,
-            float* __restrict__ Y, int M, int N, int K, int fmt) {
+            const __grid_constant__ CUtensorMap tms, W w_all,
+            float* __restrict__ Y_all, int M, int N, int K, int fmt) {
   constexpr int MT = BM / 128;               // m64 sub-tiles per warpgroup
   constexpr int A_BYTES = BM * BK * 2;       // a stage's bf16 activations
   static_assert(!W::kScaleAfter || MT == 1, "one fragment per scaled sum");
@@ -606,8 +633,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma,
   uint64_t* full = reinterpret_cast<uint64_t*>(tab + W::TAB);
   uint64_t* empty = full + ST;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, ex = blockIdx.z;
   const int nkb = K / 32, ns = (nkb + 1) / 2;
+  const W w = w_all.expert(ex, N, K);
+  float* __restrict__ Y = Y_all + (size_t)ex * M * N;
+  // the expert's first rows in the maps: A's row of m0, its weights' first
+  // byte row (RAW_ROWS per 64 K values) and its first scale row
+  const int arow = ex * M + m0;
+  const int wrow = ex * (K / 32) * (W::RAW_ROWS / 2), srow = ex * (K / 32);
   w.build_table(tab, reinterpret_cast<float*>(Bd), fmt, tid);
   if (tid == 0) {
     for (int r = 0; r < ST; ++r) {
@@ -630,11 +663,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma,
         mbar_arrive(&full[r]);
       } else if (lane == 0) {
         mbar_expect_tx(&full[r], tx);
-        tma_load_2d(As + r * A_BYTES, &tma, &full[r], s * BK, m0);
+        tma_load_2d(As + r * A_BYTES, &tma, &full[r], s * BK, arow);
         if constexpr (kTma) {
           tma_load_2d(raw + r * W::RAW_BYTES, &tmw, &full[r], n0,
-                      s * W::RAW_ROWS);
-          tma_load_2d(sc + r * W::SC_BYTES, &tms, &full[r], n0, 2 * s);
+                      wrow + s * W::RAW_ROWS);
+          tma_load_2d(sc + r * W::SC_BYTES, &tms, &full[r], n0,
+                      srow + 2 * s);
         }
       }
       if constexpr (!kTma) {
@@ -786,11 +820,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma,
 
 template <class W, int BM, bool kTma>
 cudaError_t launch_rows(cudaStream_t s, const __nv_bfloat16* A, W w, float* Y,
-                        int M, int N, int K, int fmt) {
+                        int E, int M, int N, int K, int fmt) {
   CUtensorMap tma, tmw = {}, tms = {};
-  cudaError_t e = tensor_map(&tma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A, K, M,
-                             2ull * K, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess && kTma) e = w.maps(&tmw, &tms, N, K);
+  cudaError_t e = tensor_map(&tma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A, K,
+                             (uint64_t)E * M, 2ull * K, BK, BM,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess && kTma) e = w.maps(&tmw, &tms, N, K, E);
   const size_t shm = smem_bytes<W, BM>();
   // Raised on every call: a "done" flag here would be a function-local
   // static of a template, which the dynamic linker merges across every
@@ -801,19 +836,21 @@ cudaError_t launch_rows(cudaStream_t s, const __nv_bfloat16* A, W w, float* Y,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)shm);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   gemm_kernel<W, BM, kTma><<<grid, NT, shm, s>>>(tma, tmw, tms, w, Y, M, N, K,
                                                  fmt);
   return cudaGetLastError();
 }
 
 // The tile's height: 256 rows decode each weight tile for twice as many
-// outputs as 128 (the decode is the tile's largest cost), unless that
-// leaves fewer blocks than half the SMs, as at (896, 128). The unpacked
-// layout's scaled sums need the registers of a second fragment: 128.
+// outputs as 128 (the decode is the tile's largest cost), unless M fits in
+// 128 rows (a taller tile would only add idle rows: an expert's 32 rows at
+// decode) or 256-row tiles leave fewer blocks than half the SMs, as at
+// (896, 128). The unpacked layout's scaled sums need the registers of a
+// second fragment: 128.
 template <class W, bool kTma>
 cudaError_t launch_tile(cudaStream_t s, const __nv_bfloat16* A, W w, float* Y,
-                        int M, int N, int K, int fmt) {
+                        int E, int M, int N, int K, int fmt) {
   if constexpr (!W::kScaleAfter) {
     // the SM count, asked once per device (ordinals below 64; the same
     // whichever library asks)
@@ -826,26 +863,28 @@ cudaError_t launch_tile(cudaStream_t s, const __nv_bfloat16* A, W w, float* Y,
       if (e == cudaSuccess && dev < 64) sms_of[dev].store(sms);
     }
     if (e != cudaSuccess) return e;
-    if (2 * ((M + 255) / 256) * ((N + BN - 1) / BN) >= sms)
-      return launch_rows<W, 256, kTma>(s, A, w, Y, M, N, K, fmt);
+    if (M > 128 && 2 * ((M + 255) / 256) * ((N + BN - 1) / BN) * E >= sms)
+      return launch_rows<W, 256, kTma>(s, A, w, Y, E, M, N, K, fmt);
   }
-  return launch_rows<W, 128, kTma>(s, A, w, Y, M, N, K, fmt);
+  return launch_rows<W, 128, kTma>(s, A, w, Y, E, M, N, K, fmt);
 }
 
-// Both passes on ``stream``. ``vec``: N % 16 == 0 and 16-byte aligned weight
-// operands (their bytes then come by TMA). ``xq`` holds M x K bf16, 16-byte
-// aligned. Returns the first launch error.
+// Both passes on ``stream``, over E experts of M rows each (x (E, M, K), W
+// E stacked (K, N) weights, y (E, M, N), all contiguous). ``vec``: N % 16
+// == 0 and 16-byte aligned weight operands (their bytes then come by TMA).
+// ``xq`` holds E·M x K bf16, 16-byte aligned. Returns the first launch
+// error.
 template <class W>
-int launch(const void* x, void* xq, W w, bool vec, void* y, int M, int N,
-           int K, int fmt, int t3, void* stream) {
+int launch(const void* x, void* xq, W w, bool vec, void* y, int E, int M,
+           int N, int K, int fmt, int t3, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   __nv_bfloat16* a = static_cast<__nv_bfloat16*>(xq);
-  cudaError_t e = launch_act<W::kFp6>(s, static_cast<const float*>(x), a, M,
-                                      K, fmt, t3);
+  cudaError_t e = launch_act<W::kFp6>(s, static_cast<const float*>(x), a,
+                                      E * M, K, fmt, t3);
   if (e != cudaSuccess) return (int)e;
   float* yf = static_cast<float*>(y);
-  e = vec ? launch_tile<W, true>(s, a, w, yf, M, N, K, fmt)
-          : launch_tile<W, false>(s, a, w, yf, M, N, K, fmt);
+  e = vec ? launch_tile<W, true>(s, a, w, yf, E, M, N, K, fmt)
+          : launch_tile<W, false>(s, a, w, yf, E, M, N, K, fmt);
   return (int)e;
 }
 

@@ -25,5 +25,5 @@ extern "C" int mx_gemm_launch(const void* x, void* xq, const void* wc,
                            static_cast<const float*>(ws)};
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wc) % 16 == 0
                    && reinterpret_cast<uintptr_t>(ws) % 16 == 0;
-  return mxgemm::launch(x, xq, w, vec, y, M, N, K, fmt, 0, stream);
+  return mxgemm::launch(x, xq, w, vec, y, 1, M, N, K, fmt, 0, stream);
 }

@@ -34,9 +34,23 @@ def _fmt_id(fmt: str) -> int:
     return _FMT_IDS[_mx.FORMATS[fmt].name]
 
 
+# (op, path, role) -> calls: ``core.quantize``'s fused-or-reference
+# decisions (``qlinear`` / ``qeinsum``), the JAX package's
+# ``quant_dispatch_total`` counter; counted per call (the JAX package counts
+# per traced call site)
+quant_paths: dict = {}
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    quant_paths.clear()
+
+
+def record_quant_path(op: str, path: str, role: str = "") -> None:
+    """Count one dispatch decision of ``core.quantize``."""
+    key = (op, path, role)
+    quant_paths[key] = quant_paths.get(key, 0) + 1
 
 
 def _on_card(*ts) -> bool:
@@ -189,24 +203,26 @@ def _gemm_contract(x, w_packed, w_scales_e8m0, fmt) -> None:
 GEMV_MAX_M = 16
 
 
-def _gemm_scratch_bytes(M: int, K: int) -> int:
+def _gemm_scratch_bytes(E: int, M: int, K: int) -> int:
     """Bytes of ``mx_gemm_packed_launch``'s scratch: the encoded
-    activations (M, K), bf16 for the tile path and f32 for the small-M
-    kernel's prepass."""
-    return (4 if M <= GEMV_MAX_M else 2) * M * K
+    activations (E, M, K), bf16 for the tile path and f32 for the small-M
+    kernel's prepass (the route is chosen by M, the rows of one expert)."""
+    return (4 if M <= GEMV_MAX_M else 2) * E * M * K
 
 
-def _gemm_2d(x, w_packed, w_scales_e8m0, fmt, t3):
-    M, K = x.shape
-    N = w_packed.shape[1]
+def _gemm_batched(x, w_packed, w_scales_e8m0, fmt, t3):
+    """One launch over E stacked products: x (E, M, K), w_packed (E, K//2,
+    N), w_scales_e8m0 (E, K//32, N) -> (E, M, N); E = 1 is the 2-D call."""
+    E, M, K = x.shape
+    N = w_packed.shape[-1]
     x = _aligned(x, torch.float32)
     wp = w_packed.contiguous()
     ws = w_scales_e8m0.contiguous()
-    xq = torch.empty(_gemm_scratch_bytes(M, K), dtype=torch.uint8,
+    xq = torch.empty(_gemm_scratch_bytes(E, M, K), dtype=torch.uint8,
                      device=x.device)
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
     rc = build.kernel("mx_gemm_packed")(_ptr(x), _ptr(xq), _ptr(wp),
-                                        _ptr(ws), _ptr(y), M, N, K,
+                                        _ptr(ws), _ptr(y), E, M, N, K,
                                         _fmt_id(fmt), int(t3), _stream())
     _check(rc, "mx_gemm_packed")
     launches["mx_gemm_packed"] += 1
@@ -220,21 +236,21 @@ def mx_gemm_packed(x, w_packed, w_scales_e8m0, fmt: str = "mxfp4",
 
     x (M, K) float; w_packed (K//2, N) uint8 (two 4-bit codes per byte
     along K, even index in the low nibble); w_scales_e8m0 (K//32, N) uint8.
-    Stacked weights carry leading batch dims on all three operands, with x
-    (*lead, M, K). ``t3=True`` rotates each activation 32-block by the
+    Stacked (layer- or expert-batched) weights carry leading batch dims on
+    all three operands, with x (*lead, M, K): on the card the stacked
+    products run as one launch, the flattened leading axes a grid axis of
+    the kernels. ``t3=True`` rotates each activation 32-block by the
     Hadamard H32 before quantizing (the ``ffn_down`` call site). fmt is
     'mxfp4' or 'mxint4'. No dense weight is materialized on the card."""
     _gemm_contract(x, w_packed, w_scales_e8m0, fmt)
     if not _on_card(x, w_packed, w_scales_e8m0):
         return ref.mx_matmul_packed_ref(x, w_packed, w_scales_e8m0, fmt, t3)
-    if w_packed.ndim == 2:
-        return _gemm_2d(x, w_packed, w_scales_e8m0, fmt, t3)
     lead = w_packed.shape[:-2]
-    xs = x.reshape(-1, *x.shape[-2:])
-    wps = w_packed.reshape(-1, *w_packed.shape[-2:])
-    wss = w_scales_e8m0.reshape(-1, *w_scales_e8m0.shape[-2:])
-    ys = [_gemm_2d(xs[i], wps[i], wss[i], fmt, t3) for i in range(len(xs))]
-    return torch.stack(ys).reshape(*lead, *ys[0].shape)
+    y = _gemm_batched(x.reshape(-1, *x.shape[-2:]),
+                      w_packed.reshape(-1, *w_packed.shape[-2:]),
+                      w_scales_e8m0.reshape(-1, *w_scales_e8m0.shape[-2:]),
+                      fmt, t3)
+    return y.reshape(*lead, *y.shape[-2:])
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Model API of the port, dispatching on ``cfg.family``: serving, the PTQ
 folds and the losses.
 
-The port serves the dense family; the other families of the JAX package
-(moe, hybrid, ssm, encoder, vlm) come with later slices and raise here."""
+The port serves the dense and moe families; the other families of the JAX
+package (hybrid, ssm, encoder, vlm) come with later slices and raise here."""
 from __future__ import annotations
 
 import torch
@@ -10,9 +10,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import QuantMode
 
-from . import transformer
+from . import moe, transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": moe}
 
 
 def module_for(cfg: ArchConfig):
@@ -122,10 +122,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict,
-            qm: QuantMode = QuantMode.off()) -> torch.Tensor:
-    """Next-token loss of the dense family. batch: {"inputs": (B, S)
-    tokens, "labels": (B, S)[, "mask": (B, S)]}."""
+            qm: QuantMode = QuantMode.off(),
+            aux_coefs=(0.01, 1e-3)) -> torch.Tensor:
+    """Next-token loss. batch: {"inputs": (B, S) tokens, "labels": (B,
+    S)[, "mask": (B, S)]}. The MoE family adds its router losses,
+    ``aux_coefs`` times (load balance, z-loss)."""
     module_for(cfg)
+    if cfg.family == "moe":
+        logits, (lbl, zl) = moe.forward(params, cfg, batch["inputs"], qm,
+                                        return_aux=True)
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce + aux_coefs[0] * lbl + aux_coefs[1] * zl
     logits = forward(params, cfg, batch["inputs"], qm)
     return cross_entropy(logits, batch["labels"], batch.get("mask"))
 

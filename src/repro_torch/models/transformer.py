@@ -285,6 +285,8 @@ def attn_sublayer_verify_paged(x, p, cfg: ArchConfig, qm: QuantMode,
 
 
 def ffn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
+    """The dense SwiGLU sublayer. The loops below take it as ``ffn``; the
+    MoE family (``models/moe.py``) runs them with its routed one."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], qm, bg=p.get("bg"),
                          bu=p.get("bu"), bd=p.get("bd"))
@@ -299,14 +301,14 @@ def _embed(params, inputs):
 
 
 def forward(params, cfg: ArchConfig, inputs,
-            qm: QuantMode = QuantMode.off()):
+            qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
     """inputs (B, S) int tokens -> logits (B, S, V)."""
     x = _embed(params, inputs)
     pos = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x, _, _ = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm)
 
@@ -338,7 +340,7 @@ def init_cache_paged(cfg: ArchConfig, n_pages: int, page_size: int,
 
 
 def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
-            max_len: int | None = None, kv_quant=None):
+            max_len: int | None = None, kv_quant=None, ffn=ffn_sublayer):
     """Run the prompt (B, S) at positions 0..S-1 and return (last-position
     logits (B, V), cache). ``max_len`` sizes the cache for the decode steps
     that follow (rows past S are zeros); ``kv_quant`` stores it MX-packed —
@@ -351,7 +353,7 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x, k, v = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
@@ -368,7 +370,8 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
 
 
 def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
-                  last_idx: int, qm: QuantMode = QuantMode.off()):
+                  last_idx: int, qm: QuantMode = QuantMode.off(),
+                  ffn=ffn_sublayer):
     """Chunked prefill against the contiguous cache: C tokens (B, C) at
     positions start..start+C-1, written at those rows of every lane;
     ``last_idx`` is the index within the chunk of the last real prompt
@@ -382,13 +385,13 @@ def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
         x, _, _ = attn_sublayer_chunk(x, p, cfg, qm, cache["k"][i],
                                       cache["v"][i], pos, start + C,
                                       window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     xl = rms_norm(x[:, last_idx:last_idx + 1], params["ln_f"], cfg.norm_eps)
     return head_out(xl[:, 0], params, cfg, qm), cache
 
 
 def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
-           qm: QuantMode = QuantMode.off()):
+           qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
     """One decode step over the contiguous cache. inputs (B,) tokens;
     cur_len the cache fill — an int shared by the lanes (wave scheduler) or
     a (B,) tensor of per-lane fills (continuous scheduler). Returns (logits
@@ -399,14 +402,14 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
         x, _, _ = attn_sublayer_decode(x, p, cfg, qm, cache["k"][i],
                                        cache["v"][i], cur_len,
                                        window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x[:, 0], params, cfg, qm), cache
 
 
 def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
                         inputs, start, last_idx,
-                        qm: QuantMode = QuantMode.off()):
+                        qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
     """Chunked prefill against a paged pool: C tokens per lane at positions
     start..start+C-1, written through ``block_tables`` (B, maxp). ``start``
     and ``last_idx`` (index within the chunk of the last real token) are
@@ -424,7 +427,7 @@ def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
         x, _, _ = attn_sublayer_chunk_paged(
             x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, pos, st + C,
             window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     li = torch.as_tensor(last_idx, device=dev).long()
     if li.ndim == 1:
         xl = torch.take_along_dim(x, li[:, None, None], dim=1)
@@ -435,7 +438,8 @@ def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
 
 
 def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
-                 block_tables, qm: QuantMode = QuantMode.off()):
+                 block_tables, qm: QuantMode = QuantMode.off(),
+                 ffn=ffn_sublayer):
     """One decode step over a paged pool. inputs (B,) tokens; cur_len (B,)
     per-lane fills; block_tables (B, maxp). Returns (logits (B, V),
     cache)."""
@@ -446,13 +450,13 @@ def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
         x, _, _ = attn_sublayer_decode_paged(
             x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, cur_len,
             window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x[:, 0], params, cfg, qm), cache
 
 
 def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
-           qm: QuantMode = QuantMode.off()):
+           qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
     """Speculative verify step over the contiguous cache. inputs (B, C)
     tokens — each lane's current token followed by C - 1 drafts; pos (B,)
     each lane's next cache row; n_valid (B,) its real token count (1 +
@@ -471,13 +475,14 @@ def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
         x, _, _ = attn_sublayer_verify(x, p, cfg, qm, cache["k"][i],
                                        cache["v"][i], cl, nv, slots,
                                        window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm), cache
 
 
 def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
-                 block_tables, qm: QuantMode = QuantMode.off()):
+                 block_tables, qm: QuantMode = QuantMode.off(),
+                 ffn=ffn_sublayer):
     """Speculative verify step over a paged pool — the contract of
     :func:`verify` with rows resolved through ``block_tables`` (B, maxp).
     The engine reserves every page a request can reach at admission, so a
@@ -494,7 +499,7 @@ def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
         x, _, _ = attn_sublayer_verify_paged(
             x, p, cfg, qm, cache["k"][i], cache["v"][i], bt, cl, nv, slots,
             window=cfg.window)
-        x = ffn_sublayer(x, p, cfg, qm)
+        x = ffn(x, p, cfg, qm)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm), cache
 

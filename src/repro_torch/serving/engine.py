@@ -303,6 +303,12 @@ class _Slot:
     remaining: int           # decode budget left
 
 
+# the ROADMAP slice (Queue 1) that brings each family the port cannot serve
+_FAMILY_SLICE = {"vlm": "the model-zoo (Queue 1 item 4)",
+                 "hybrid": "the recurrent-families (Queue 1 item 9)",
+                 "ssm": "the recurrent-families (Queue 1 item 9)"}
+
+
 class Engine:
     """Serving engine on ``device`` (default: the CUDA card).
 
@@ -353,24 +359,44 @@ class Engine:
         ``device`` is where the engine runs: None means the CUDA card, and
         the CPU runs only when asked for."""
         self.device = devices.resolve(device)
+        # the JAX engine's gates, in its order
+        if cfg.family == "encoder":
+            raise ValueError("encoder archs are not served autoregressively")
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r} "
                              f"(expected one of {SCHEDULERS})")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r} "
                              f"(expected one of {KV_LAYOUTS})")
-        if kv_layout == "paged" and scheduler != "continuous":
+        if kv_layout == "paged":
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"kv_layout='paged' pages an attention KV cache "
+                    f"through block tables; family {cfg.family!r} keeps "
+                    f"recurrent ring-buffer state (griffin/ssm hybrids) "
+                    f"that cannot be paged — serve it with "
+                    f"kv_layout='contiguous'")
+            if scheduler != "continuous":
+                raise ValueError(
+                    "kv_layout='paged' requires scheduler='continuous'; "
+                    "the wave scheduler keeps the contiguous per-wave "
+                    "cache")
+        if scheduler == "continuous" and (
+                cfg.family not in ("dense", "moe") or not cfg.embed_inputs):
             raise ValueError(
-                "kv_layout='paged' requires scheduler='continuous'; the "
-                "wave scheduler keeps the contiguous per-wave cache")
+                "continuous scheduler requires a token-embedding KV-cache "
+                "family (dense/moe); recurrent-state families must use "
+                "scheduler='wave'")
         if spec is not None and scheduler != "continuous":
             raise ValueError(
                 "speculative decoding (spec=...) requires "
                 "scheduler='continuous': drafts are proposed per slot from "
                 "each request's own emitted tokens")
-        if cfg.family != "dense" or not cfg.embed_inputs:
-            raise ValueError(f"the port serves the dense token-embedding "
-                             f"family; got {cfg.family!r}")
+        if cfg.family not in ("dense", "moe") or not cfg.embed_inputs:
+            raise ValueError(
+                f"family {cfg.family!r} is not ported yet: the port serves "
+                f"dense and moe; {_FAMILY_SLICE.get(cfg.family, 'a later')}"
+                f" slice brings it")
         self.policy = policy if policy is not None else SchedulingPolicy()
         self.spec = spec
         self._faults = faults

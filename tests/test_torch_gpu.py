@@ -261,6 +261,42 @@ def test_cuda_tile_gemm_stacked_weights(cuda_device, K, N):
         assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
 
 
+# Expert-stacked calls (the MoE family's qeinsum): E experts of M rows in
+# one launch, on both routes (M <= 16: the small-M kernel; above: the tile).
+# Qwen1.5-MoE-A2.7B's expert widths (60 experts, d 2048, f 1408; M = 32 is
+# its decode step's 4 groups x capacity 8, M = 8 the reduced configs'),
+# Moonlight's 64 experts, a ragged N of 60 (byte-wise staging), half last K
+# stages (160, 96: the box reads the next expert's first rows), and ragged
+# M (100, 17), where the last expert's row tile runs past the array's end.
+EXPERT_CASES = ((60, 8, 2048, 1408, False), (60, 32, 2048, 1408, False),
+                (60, 32, 1408, 2048, True), (60, 8, 1408, 2048, True),
+                (64, 8, 2048, 1408, False), (6, 8, 128, 60, False),
+                (6, 32, 128, 60, True), (6, 100, 160, 72, False),
+                (4, 17, 96, 48, True), (3, 129, 896, 128, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("mxfp4", "mxint4"))
+@pytest.mark.parametrize("E,M,K,N,t3", EXPERT_CASES)
+def test_cuda_expert_stacked_gemm(cuda_device, E, M, K, N, t3, fmt):
+    """One launch for the E products, each within 1e-4 of its max |y| of
+    the plain version; two calls bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn(E, M, K, generator=g, device=cuda_device)
+    w = torch.randn(E, K, N, generator=g, device=cuda_device) / K ** 0.5
+    pw = PackedWeight.from_dense(w, fmt)
+    tops.reset_launches()
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, fmt, t3=t3)
+    assert tops.launches["mx_gemm_packed"] == 1
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0, fmt,
+                                   t3=t3)
+    assert y.shape == (E, M, N)
+    err = (y - yp).abs().amax(dim=(1, 2))
+    assert (err <= 1e-4 * yp.abs().amax(dim=(1, 2))).all()
+    assert torch.equal(y, tops.mx_gemm_packed(x, pw.codes_packed,
+                                              pw.scales_e8m0, fmt, t3=t3))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", MX_FMTS)
 @pytest.mark.parametrize("K,N", ((160, 72), (896, 4864)))
