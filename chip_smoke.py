@@ -78,7 +78,24 @@ Phases, in order (each raises on failure; nothing is caught):
    layers, one prefill and decode step per layout held call by call; and
    the expert-stacked GEMM timed at the decode and wave-prefill shapes
    (``launches_by_path`` under ``moe``, ``moe_wave``,
-   ``moe_continuous``).
+   ``moe_continuous``);
+9. training, the train -> PTQ -> serve entry point and the rest of the
+   zoo (:func:`zoo_phase`): Qwen2-0.5B at its full config trained 20
+   steps under the port's ``Trainer`` (batch 8 x 512, bf16, remat), then
+   a run interrupted after its step-10 checkpoint and resumed, its losses
+   bitwise the uninterrupted run's; ``launch.serve --arch qwen2-0.5b
+   --full --ckpt-dir ... --method rtn`` on that checkpoint, fused and
+   reference, through kernels 1-3 (``launches_by_path`` ``train``);
+   DeepSeek-67B's widths at 2 of 95 layers served on the paged path
+   (``zoo_deepseek``); InternVL2-26B's at 2 of 48 through ``api.prefill``
+   and ``api.decode`` of stub embeddings on the mxfp8 contiguous cache
+   (``zoo_vlm``); HuBERT-XLarge's full forward (``zoo_encoder``); each
+   with launch counts, fused against reference logits and kernel calls
+   held against their plain versions. The kernel rows at those shapes are
+   checked and timed beside phase 2 (:func:`zoo_kernel_entries`), and
+   (f), a preempted spec request (k = 4) resumed bit for bit on both
+   continuous layouts, runs after phase 6 on phase 3's engines
+   (:func:`spec_resume_gate`).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -346,10 +363,14 @@ def _sdpa_inputs(torch, kc, ks, vc, vs, bt, fmt, kvh, Dh, G):
     return heads(k), heads(v)
 
 
-def check_decode(torch, dev, gen):
+def check_decode(torch, dev, gen, H=14, kvh=2, Dh=64,
+                 fmts=("mxfp8", "mxint8", "mxfp4", "mxint4")):
+    """The paged flash decode at Qwen2-0.5B's heads (or the heads given)
+    over four lanes of 1024-row pages, each format with and without a
+    window against its plain version; mxfp8 timed."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, packing, ref
-    B, H, kvh, Dh, P, maxp = 4, 14, 2, 64, 1024, 2
+    B, P, maxp = 4, 1024, 2
     D, G, n_pages = kvh * Dh, H // kvh, 1 + 4 * maxp
     kv_len = [1330, 1180, 250, 140]
     bt = _tables(torch, dev, gen, B, maxp, n_pages, kv_len, P)
@@ -357,7 +378,7 @@ def check_decode(torch, dev, gen):
     qp = kl - 1
     q = torch.randn(B, H, Dh, generator=gen, device=dev)
     entry = None
-    for fmt in ("mxfp8", "mxint8", "mxfp4", "mxint4"):
+    for fmt in fmts:
         kc, ks, vc, vs = _paged_pool(torch, dev, gen, n_pages, P, D, fmt)
         for window in (0, 300):
             out = ops.mx_flash_decode_paged(q, kc, ks, vc, vs, bt, qp, kl,
@@ -487,19 +508,21 @@ def _prefill_pages(torch, dev, gen, P, maxp, H=14, kvh=2, Dh=64):
     return entry
 
 
-def check_flash_decode(torch, dev, gen):
+def check_flash_decode(torch, dev, gen, H=14, kvh=2, Dh=64,
+                       fmts=("mxfp8", "mxint8", "mxfp4", "mxint4")):
     """The contiguous-cache flash decode at the paged check's shape: B = 4
-    lanes of a 2048-row cache filled to [1330, 1180, 250, 140]."""
+    lanes of a 2048-row cache filled to [1330, 1180, 250, 140] (Qwen2-0.5B's
+    heads, or the heads given)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, packing, ref
-    B, H, kvh, Dh, S = 4, 14, 2, 64, 2048
+    B, S = 4, 2048
     D, G = kvh * Dh, H // kvh
     kv_len = [1330, 1180, 250, 140]
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     qp = kl - 1
     q = torch.randn(B, H, Dh, generator=gen, device=dev)
     entry = None
-    for fmt in ("mxfp8", "mxint8", "mxfp4", "mxint4"):
+    for fmt in fmts:
         kc, ks = packing.kv_encode(torch.randn(B, S, D, generator=gen,
                                                device=dev), fmt)
         vc, vs = packing.kv_encode(torch.randn(B, S, D, generator=gen,
@@ -2191,22 +2214,6 @@ def moe_gemms_per_forward(cfg) -> int:
     return cfg.n_layers * (8 + (3 if cfg.n_shared_experts else 0))
 
 
-def pack_tree(params, fmt="mxfp4"):
-    """The packed serving tree of RTN weights, in memory: what
-    ``export_artifact`` then ``load_artifact`` give (every weight key
-    packed, the rest as is)."""
-    from repro_torch.core.gptq import WEIGHT_KEYS
-    from repro_torch.kernels.packing import PackedWeight
-
-    def visit(name, leaf):
-        if isinstance(leaf, dict):
-            return {k: visit(k, v) for k, v in leaf.items()}
-        if name in WEIGHT_KEYS and leaf.ndim >= 2:
-            return PackedWeight.from_dense(leaf, fmt)
-        return leaf
-    return visit("", params)
-
-
 def expert_gemm_case(torch, dev, gen, E, M, K, N, t3):
     """The expert-stacked mx_gemm_packed at one shape: one launch, checked
     against its plain version (and a second call, bitwise), timed beside
@@ -2338,6 +2345,7 @@ def moonlight_path(torch, dev, seed, card):
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.artifacts.store import pack_params
     from repro_torch.core import ptq
     from repro_torch.core.quantize import KVCacheQuant
     from repro_torch.kernels import ops
@@ -2351,7 +2359,7 @@ def moonlight_path(torch, dev, seed, card):
     gen = torch.Generator(device=dev).manual_seed(seed + 8)
     res = ptq.apply_method("rtn", moe.init(gen, cfg, device=dev), cfg,
                            fmt="mxfp4")
-    params = pack_tree(res.params)
+    params = pack_params(res)
     qm = dataclasses.replace(res.qm, t3_block=32)
     del res
     torch.cuda.synchronize()
@@ -2499,6 +2507,533 @@ def moe_phase(torch, dev, seed: int, card: str):
     return launches, entries
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training, the train -> PTQ -> serve entry point, the zoo, and the
+# spec resume
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20          # (a): Qwen2-0.5B's full config under the Trainer
+TRAIN_CKPT = 10           # the checkpoint the interrupted run resumes from
+TRAIN_FAIL = 15           # where it is interrupted
+TRAIN_SHAPE = (8, 512)    # batch x sequence
+ZOO_LAYERS = 2            # of DeepSeek-67B's 95 and InternVL2-26B's 48
+VLM_SHAPE = (4, 1024, 32)  # (d): lanes, stub-embedding prompt, decode steps
+ENC_SHAPE = (4, 1500)     # (e): lanes x frames
+ZOO_COS = 0.5             # fused against reference logits (phase 3's bar)
+
+
+def train_phase(torch, dev, seed, card, root):
+    """(a) Qwen2-0.5B at its full config (24 layers, d_model 896, bf16
+    parameters, remat) under ``launch.train``'s Trainer: TRAIN_SHAPE
+    batches, TRAIN_STEPS steps uninterrupted; then a run with a checkpoint
+    at TRAIN_CKPT, interrupted at TRAIN_FAIL (``fail_at``) and resumed to
+    the end, whose losses after the resume must equal the uninterrupted
+    run's bit for bit. Returns the resumed run's checkpoint directory."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = configs.get("qwen2-0.5b")
+    B, S = TRAIN_SHAPE
+
+    def trainer(d, every, log_=lambda *_: None):
+        return Trainer(cfg, TrainConfig(
+            steps=TRAIN_STEPS, batch_size=B, seq_len=S, ckpt_every=every,
+            ckpt_dir=str(d), keep=1, log_every=1, seed=seed,
+            opt=opt.AdamWConfig(lr=3e-4, warmup_steps=5,
+                                total_steps=TRAIN_STEPS)),
+            device=dev, log=log_)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = trainer(root / "a", 10 ** 9)
+    t0 = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    la = {m["step"]: m["loss"] for m in a.metrics}
+    st = a.step_times
+    log(f"phase 9 (a) train qwen2-0.5b full ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, bf16 parameters, remat) batch {B} x seq "
+        f"{S}: {TRAIN_STEPS} steps in {wall:.1f} s (checkpoint included); "
+        f"step time first {st[0]:.3f} s, median {sorted(st)[len(st)//2]:.3f}"
+        f" s; peak memory {peak:.2f} GiB; loss step 1 {la[1]:.6f}, step "
+        f"{TRAIN_STEPS} {la[TRAIN_STEPS]:.6f} on {card}")
+    if not la[TRAIN_STEPS] < la[1]:
+        raise AssertionError("phase 9 (a): the loss did not fall")
+    del a
+    shutil.rmtree(root / "a", ignore_errors=True)
+    torch.cuda.empty_cache()
+    b = trainer(root / "b", TRAIN_CKPT)
+    try:
+        b.train(fail_at=TRAIN_FAIL)
+        raise AssertionError("phase 9 (a): the injected failure did not fire")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    del b
+    torch.cuda.empty_cache()
+    logs = []
+    b2 = trainer(root / "b", TRAIN_CKPT, logs.append)
+    t0 = time.perf_counter()
+    b2.train()
+    torch.cuda.synchronize()
+    lb = {m["step"]: m["loss"] for m in b2.metrics}
+    parted = [s for s in lb if lb[s] != la[s]]
+    log(f"phase 9 (a) resumed ({logs[0] if logs else 'no resume'}) from the "
+        f"step-{TRAIN_CKPT} checkpoint after a failure at step {TRAIN_FAIL}:"
+        f" {len(lb)} steps in {time.perf_counter() - t0:.1f} s; losses of "
+        f"steps {min(lb)}-{max(lb)} equal the uninterrupted run's bit for "
+        f"bit: {not parted}")
+    if f"[trainer] resumed from step {TRAIN_CKPT}" not in logs or \
+            sorted(lb) != list(range(TRAIN_CKPT + 1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"phase 9 (a): resume went wrong: {logs}")
+    if parted:
+        raise AssertionError(
+            f"phase 9 (a): resumed losses part from the uninterrupted run at "
+            f"steps {parted}: " + json.dumps({s: [la[s], lb[s]]
+                                              for s in parted}))
+    del b2
+    torch.cuda.empty_cache()
+    return root / "b"
+
+
+def train_serve_path(torch, dev, seed, card, ckpt_dir):
+    """(b) ``launch.serve --arch qwen2-0.5b --full --ckpt-dir <a> --method
+    rtn --kv-layout paged --scheduler continuous`` in-process, fused, with
+    the launch counts zeroed just before and read just after; its served
+    weights held call by call against the plain versions on a prefill and
+    a decode step; then the same command with the reference backend, its
+    tokens against the fused run's. Returns the launches."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+
+    argv = ["--arch", "qwen2-0.5b", "--full", "--ckpt-dir", str(ckpt_dir),
+            "--method", "rtn", "--kv-layout", "paged", "--scheduler",
+            "continuous", "--requests", "4", "--prompt-len", "256",
+            "--max-new", "32", "--batch", "4", "--max-len", "2048",
+            "--seed", str(seed), "--device", dev.type]
+    runs = {}
+    gen_, thr = Engine.generate, Engine.throughput
+
+    def spy_gen(self, reqs):
+        out = gen_(self, reqs)
+        runs.setdefault(self.qm.backend, {})["reqs"] = out
+        return out
+
+    def spy_thr(self, *a, **k):
+        res = thr(self, *a, **k)
+        runs.setdefault(self.qm.backend, {}).update(eng=self, stats=res)
+        return res
+
+    Engine.generate, Engine.throughput = spy_gen, spy_thr
+    try:
+        for backend in ("fused", "ref"):
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = launch_serve.main(argv + ["--backend", backend])
+            torch.cuda.synchronize()
+            runs[backend]["launches"] = dict(ops.launches)
+            text = out.getvalue()
+            log(f"phase 9 (b) launch.serve {' '.join(argv)} --backend "
+                f"{backend}: exit {rc} in {time.perf_counter() - t0:.1f} s; "
+                + " | ".join(text.strip().splitlines()[:3]))
+            if rc != 0 or f"loaded checkpoint step {TRAIN_STEPS}" not in text:
+                raise AssertionError(f"phase 9 (b): {text}")
+    finally:
+        Engine.generate, Engine.throughput = gen_, thr
+    f = runs["fused"]
+    eng, st, lp = f["eng"], f["stats"], f["launches"]
+    L = eng.cfg.n_layers
+    log(f"phase 9 (b) fused: {st['tokens']} tokens, {st['tok_per_s']:.1f} "
+        f"tok/s, launches {lp}")
+    for name in PAGED_KERNELS:
+        if lp[name] <= 0:
+            raise AssertionError(f"phase 9 (b): {name} never launched")
+    if lp["mx_flash_decode_paged"] != st["decode_steps"] * L:
+        raise AssertionError(f"phase 9 (b): paged decode launched "
+                             f"{lp['mx_flash_decode_paged']}x for "
+                             f"{st['decode_steps']} steps")
+    eng._alloc.check()
+    prompt = np.asarray(f["reqs"][0].prompt)
+    paged_teacher_forced(torch, transformer, eng.params, eng.cfg, eng.qm,
+                         eng, prompt, dev, " train->serve")
+    agree = sum(int(a == b) for r, s in zip(f["reqs"], runs["ref"]["reqs"])
+                for a, b in zip(r.out.tolist(), s.out.tolist()))
+    log(f"phase 9 (b): paged greedy tokens fused == ref: {agree}/"
+        f"{sum(len(r.out) for r in f['reqs'])}")
+    del runs, f, eng
+    torch.cuda.empty_cache()
+    return lp
+
+
+def _zoo_model(torch, dev, seed, name, layers=None):
+    """A zoo config at its published widths (depth cut to ``layers``):
+    random weights built on the card, RTN mxfp4, packed in memory, T3 on.
+    Returns (params, cfg, qm)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+    from repro_torch.models import api
+
+    full = configs.get(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 90)
+    res = ptq.apply_method("rtn", api.init(gen, cfg, device=dev), cfg,
+                           fmt="mxfp4")
+    params = pack_params(res)
+    qm = dataclasses.replace(res.qm, t3_block=32)
+    del res
+    torch.cuda.synchronize()
+    log(f"phase 9 {name}: depth {cfg.n_layers} of {full.n_layers} layers, "
+        f"published widths (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}); init + RTN + pack on the card "
+        f"{time.perf_counter() - t0:.1f} s, no artifact written")
+    return params, cfg, qm
+
+
+def _logits_agree(torch, label, fused, ref):
+    """Fused against reference logits, row by row: logs max |diff|, the
+    worst cosine and argmax agreement; fails below ZOO_COS."""
+    f, r = fused.float().flatten(0, -2), ref.float().flatten(0, -2)
+    cos = torch.nn.functional.cosine_similarity(f, r, dim=-1)
+    same = (f.argmax(-1) == r.argmax(-1)).float().mean().item()
+    log(f"{label}: fused vs ref logits max|diff| "
+        f"{(f - r).abs().max().item():.4e}, max|logit| "
+        f"{r.abs().max().item():.4e}, cosine min {cos.min().item():.4f} "
+        f"mean {cos.mean().item():.4f}, argmax agreement {same:.3f}")
+    if not cos.min().item() >= ZOO_COS:
+        raise AssertionError(f"{label}: fused logits are unrelated to ref")
+
+
+def deepseek_path(torch, dev, seed, card):
+    """(c) DeepSeek-67B's widths cut to ZOO_LAYERS, served by phase 3's
+    engine (4 lanes, max_len 2048, mxfp8 KV, fused, continuous/paged) on
+    ``traffic``, 32 greedy tokens each, launch counts per run; a prefill
+    and a decode step held call by call; fused against reference tokens;
+    its kernels' shapes are timed beside phase 2
+    (:func:`zoo_kernel_entries`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine, Request
+
+    params, cfg, qm = _zoo_model(torch, dev, seed, "deepseek-67b",
+                                 ZOO_LAYERS)
+    L = cfg.n_layers
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    kw = dict(scheduler="continuous", kv_layout="paged", batch_size=4,
+              max_len=2048, kv_cache="mxfp8", device=dev)
+    eng, reqs, lp, st = serve(torch, Engine, Request, (params, cfg, qm),
+                              prompts, cfg, tag=" deepseek-67b", **kw)
+    check_paged_run(eng, lp, st, L, " deepseek-67b")
+    if lp["mx_gemm_packed"] % (7 * L):
+        raise AssertionError(f"deepseek: {lp['mx_gemm_packed']} GEMM "
+                             f"launches, not a multiple of 7 x {L}")
+    paged_teacher_forced(torch, transformer, params, cfg, qm, eng,
+                         prompts[0], dev, " deepseek-67b")
+    ref_eng = Engine(params, cfg, qm.with_backend("ref"), **kw)
+    ref_reqs = [Request(prompt=p, max_new=32) for p in prompts]
+    ref_eng.generate(ref_reqs)
+    agree = sum(int(a == b) for r, s in zip(reqs, ref_reqs)
+                for a, b in zip(r.out.tolist(), s.out.tolist()))
+    log(f"phase 9 (c) deepseek-67b: paged greedy tokens fused == ref: "
+        f"{agree}/{sum(len(r.out) for r in reqs)}")
+    del eng, ref_eng, params
+    torch.cuda.empty_cache()
+    return lp
+
+
+def vlm_path(torch, dev, seed, card):
+    """(d) InternVL2-26B's widths cut to ZOO_LAYERS: ``api.prefill`` of
+    stub embeddings (VLM_SHAPE lanes x rows) into the mxfp8 contiguous
+    cache, then decode steps of stub embeddings through the contiguous
+    flash decode at G = 6, fused (launch counts) against the reference
+    backend; a prefill and a decode step held call by call."""
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    params, cfg, qm = _zoo_model(torch, dev, seed, "internvl2-26b",
+                                 ZOO_LAYERS)
+    L = cfg.n_layers
+    B, S, T = VLM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed + 92)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev) * 0.5
+    nxt = torch.randn(T, B, cfg.d_model, generator=gen, device=dev) * 0.5
+    kv = KVCacheQuant("mxfp8")
+
+    def run(q, steps=T):
+        with torch.no_grad():
+            lg, cache = api.prefill(params, cfg, x, q, max_len=2048,
+                                    kv_quant=kv)
+            out = [lg]
+            for t in range(steps):
+                lg, cache = api.decode(params, cfg, cache, nxt[t], S + t, q)
+                out.append(lg)
+        return torch.stack(out)
+
+    fused = qm.with_backend("fused")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lf = run(fused)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    log(f"phase 9 (d) internvl2-26b: prefill of {B} x {S} stub embeddings "
+        f"+ {T} decode steps (mxfp8 contiguous cache) in {dt:.2f} s on "
+        f"{card}; launches {launches}")
+    want = {"mx_gemm_packed": 7 * L * (1 + T), "mx_flash_decode": T * L}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"phase 9 (d): {name} launched {n}x, "
+                                 f"expected {want.get(name, 0)}")
+    lr = run(qm.with_backend("ref"))
+    _logits_agree(torch, "phase 9 (d) internvl2-26b", lf, lr)
+    worst = teacher_forced(torch, ops, lambda q: run(q, 1), fused)
+    log("phase 9 (d) internvl2-26b teacher-forced, worst error per kernel "
+        "call: " + json.dumps(worst))
+    del params, lf, lr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encoder_path(torch, dev, seed, card):
+    """(e) HuBERT-XLarge at its full published config (48 layers, d_model
+    1280, head_dim 80, non-causal): ``api.forward`` of ENC_SHAPE stub
+    frames under the fused backend (launch counts) against the reference
+    backend, every GEMM call held against its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import tree_leaves
+
+    params, cfg, qm = _zoo_model(torch, dev, seed, "hubert-xlarge")
+    nparam = sum(int(np.prod(v.shape)) for v in tree_leaves(params))
+    B, S = ENC_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed + 93)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev) * 0.5
+
+    def run(q):
+        with torch.no_grad():
+            return api.forward(params, cfg, x, q)
+
+    fused = qm.with_backend("fused")
+    run(fused)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lf = run(fused)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    log(f"phase 9 (e) hubert-xlarge ({nparam / 1e9:.3f} B parameters): "
+        f"forward of {B} x {S} frames in {dt * 1e3:.1f} ms on {card}; "
+        f"launches {launches}")
+    want = {"mx_gemm_packed": 7 * cfg.n_layers}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"phase 9 (e): {name} launched {n}x, "
+                                 f"expected {want.get(name, 0)}")
+    lr = run(qm.with_backend("ref"))
+    _logits_agree(torch, "phase 9 (e) hubert-xlarge", lf, lr)
+    worst = teacher_forced(torch, ops, run, fused)
+    log("phase 9 (e) hubert-xlarge teacher-forced, worst error per kernel "
+        "call: " + json.dumps(worst))
+    del params, lf, lr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spec_resume_gate(torch, dev, seed, card, served):
+    """(f) Priority preemption under spec decoding (k = 4) on both
+    continuous layouts of phase 3's Qwen2-0.5B: four priority-0 requests on
+    repetition-friendly prompts, a priority-1 arrival once all four are
+    decoding, one preempted and resumed. Every priority-0 request must give
+    the tokens of the uninterrupted run (the four alone), and the logits
+    row the resume's replay ends on must be bitwise the row the
+    uninterrupted run computed at that position (slot 0 of its next verify
+    step)."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.policy import SchedulingPolicy, SpecConfig
+
+    params, cfg, qm = served["params"], served["cfg"], served["qm"]
+    fused = qm.with_backend("fused")
+    prompts = rep_prompts(np.random.default_rng(seed + 9), cfg.vocab_size)
+    hi_prompt = np.random.default_rng(seed + 10).integers(
+        0, cfg.vocab_size, 200).astype(np.int32)
+    spec = SpecConfig(k=4)
+    rec = []
+    owner = []
+    real = {n: getattr(api, n) for n in ("verify", "verify_paged")}
+
+    def spy(n):
+        def run(*a, **k):
+            logits, cache = real[n](*a, **k)
+            if owner:
+                rec.append(([None if sl is None else sl.req.request_id
+                             for sl in owner[0]._slots],
+                            a[4].clone(), logits[:, 0].clone()))
+            return logits, cache
+        return run
+
+    replay = Engine._replay
+    seen = []
+
+    def spy_replay(self, slot, req, pos0):
+        n0 = len(req._steps)
+        row = replay(self, slot, req, pos0)
+        seen.append((req.request_id, pos0 + len(req._gen) - 1, row.clone(),
+                     n0, list(req._steps)))
+        return row
+
+    for n in real:
+        setattr(api, n, spy(n))
+    Engine._replay = spy_replay
+    try:
+        for name, kw in (("continuous", dict(kv_layout="contiguous")),
+                         ("paged", dict(kv_layout="paged"))):
+            common = dict(scheduler="continuous", batch_size=4,
+                          max_len=2048, kv_cache="mxfp8", spec=spec,
+                          device=dev, **kw)
+
+            def lo():
+                return [Request(prompt=p, max_new=32, request_id=f"r{i}",
+                                deadline_ms=1e9)
+                        for i, p in enumerate(prompts)]
+            rec.clear()
+            ref_eng = Engine(params, cfg, fused, **common)
+            owner[:] = [ref_eng]
+            ref = lo()
+            ref_eng.generate(ref)
+            owner.clear()
+            table = {}
+            for ids, pos, rows in rec:
+                for lane, rid in enumerate(ids):
+                    if rid is not None:
+                        table[(rid, int(pos[lane]))] = rows[lane]
+            eng = Engine(params, cfg, fused, policy=SchedulingPolicy(
+                backoff_base_s=0.0), **common)
+            reqs = lo()
+            for r in reqs:
+                eng.submit(r)
+            steps = 0
+            while not all(r.state.value == "running" and len(r._gen) > 4
+                          for r in reqs):
+                eng.step()
+                steps += 1
+                if steps > 64:
+                    raise AssertionError("phase 9 (f): the lanes never all "
+                                         "ran")
+            seen.clear()
+            hi = Request(prompt=hi_prompt, max_new=8, priority=1,
+                         request_id="hi")
+            eng.submit(hi)
+            eng.drain()
+            torch.cuda.synchronize()
+            st = eng.stats()
+            bad = [r.request_id for r, s in zip(reqs, ref)
+                   if not np.array_equal(r.out, s.out)]
+            if (st["preemptions"] != 1 or len(seen) != 1
+                    or hi.state.value != "finished"):
+                raise AssertionError(f"phase 9 (f) {name}: "
+                                     f"{st['preemptions']} preemptions, "
+                                     f"{len(seen)} resumes, hi "
+                                     f"{hi.state.value}")
+            rid, p, row, n0, steps_rec = seen[0]
+            want = table.get((rid, p))
+            same = want is not None and torch.equal(row, want)
+            log(f"phase 9 (f) spec k=4 {name}: request {rid} preempted and "
+                f"resumed through {n0 + 1} verify replay steps (recorded "
+                f"steps {steps_rec[:n0]}); the 4 priority-0 requests equal "
+                f"their uninterrupted tokens: {not bad}; the replay's last "
+                f"logits row (position {p}) bitwise the uninterrupted "
+                f"run's: {same}; resume_replay_steps "
+                f"{st['resume_replay_steps']} on {card}")
+            if bad or not same or st["resume_replay_steps"] != n0 + 1:
+                raise AssertionError(f"phase 9 (f) {name}: tokens part for "
+                                     f"{bad}, row equal {same}")
+            del eng, ref_eng
+    finally:
+        for n, fn in real.items():
+            setattr(api, n, fn)
+        Engine._replay = replay
+
+
+def zoo_kernel_entries(torch, dev, seed):
+    """Phase 9's kernel rows, run beside phase 2 (a record of 200 GEMV
+    calls at K = 8192 taken after phases 1-8 came back with 339 of its 400
+    device events four times running): the packed GEMM at DeepSeek-67B's
+    decode (M = 4) and chunk (M = 1024) shapes and at HuBERT-XLarge's
+    forward (M = 6000), the paged prefill and decode at DeepSeek-67B's
+    heads (G = 8, Dh 128), the contiguous decode at InternVL2-26B's (G =
+    6), each checked against its plain version and timed."""
+    from repro_torch import configs
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 91)
+    ds, vl, hb = (configs.get(n) for n in ("deepseek-67b", "internvl2-26b",
+                                           "hubert-xlarge"))
+    d, f = ds.d_model, ds.d_ff
+    entries = [dict(gemm_case(torch, dev, gen, M, K, N, t3),
+                    path="zoo_deepseek")
+               for M, K, N, t3 in ((4, d, f, False), (4, f, d, True),
+                                   (1024, d, f, False))]
+    heads = dict(H=ds.n_heads, kvh=ds.n_kv_heads, Dh=ds.head_dim)
+    entries.append(dict(_prefill_pages(torch, dev, gen, 1024, 2, **heads),
+                        path="zoo_deepseek"))
+    entries.append(dict(check_decode(torch, dev, gen, fmts=("mxfp8",),
+                                     **heads), path="zoo_deepseek"))
+    entries.append(dict(check_flash_decode(
+        torch, dev, gen, H=vl.n_heads, kvh=vl.n_kv_heads, Dh=vl.head_dim,
+        fmts=("mxfp8",)), path="zoo_vlm"))
+    d, f = hb.d_model, hb.d_ff
+    M = ENC_SHAPE[0] * ENC_SHAPE[1]
+    entries += [dict(gemm_case(torch, dev, gen, M, K, N, t3),
+                     path="zoo_encoder")
+                for K, N, t3 in ((d, f, False), (f, d, True))]
+    return entries
+
+
+def zoo_phase(torch, dev, seed, card):
+    """Phase 9 (a)-(e): training at Qwen2-0.5B's full config, the train ->
+    PTQ -> serve entry point on its checkpoint, DeepSeek-67B's and
+    InternVL2-26B's widths at reduced depth and HuBERT-XLarge at its full
+    config. Returns {path: launches}."""
+    t_phase = time.perf_counter()
+    log(f"phase 9 on {card}")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = train_phase(torch, dev, seed, card, pathlib.Path(tmp))
+        t_a = time.perf_counter() - t_phase
+        launches["train"] = train_serve_path(torch, dev, seed, card, ckpt)
+    t_b = time.perf_counter() - t_phase
+    launches["zoo_deepseek"] = deepseek_path(torch, dev, seed, card)
+    t_c = time.perf_counter() - t_phase
+    launches["zoo_vlm"] = vlm_path(torch, dev, seed, card)
+    t_d = time.perf_counter() - t_phase
+    launches["zoo_encoder"] = encoder_path(torch, dev, seed, card)
+    t_e = time.perf_counter() - t_phase
+    log(f"phase 9: {t_e:.1f} s wall on {card} (cumulative: (a) {t_a:.1f}, "
+        f"(b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, (e) {t_e:.1f})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2525,6 +3060,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     gemm_entries = check_gemm(torch, dev, gen)
     verify_gemm_times(torch, dev, args.seed)
+    t0 = time.perf_counter()
+    zoo_entries = zoo_kernel_entries(torch, dev, args.seed)
+    log(f"phase 9 kernel rows: {time.perf_counter() - t0:.1f} s wall on "
+        f"{card}")
     entries = [*gemm_entries,
                *check_prefill(torch, dev, gen, args.seed),
                check_decode(torch, dev, gen), check_flash_decode(torch, dev,
@@ -2536,11 +3075,16 @@ def main(argv=None) -> int:
     sampled = sampling_and_spec(torch, dev, args.seed, card, **served)
     launches["server"] = http_server_phase(torch, dev, args.seed, card,
                                            served, sampled)
+    t0 = time.perf_counter()
+    spec_resume_gate(torch, dev, args.seed, card, served)
+    log(f"phase 9 (f): {time.perf_counter() - t0:.1f} s wall on {card}")
     del served, sampled
     launches["ptq"] = ptq_phase(torch, dev, args.seed, card)
     moe_launches, moe_entries = moe_phase(torch, dev, args.seed, card)
     launches.update(moe_launches)
     entries += moe_entries
+    launches.update(zoo_phase(torch, dev, args.seed, card))
+    entries += zoo_entries
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

@@ -13,8 +13,8 @@
 writes the packed artifact; `inspect` prints the manifest summary and
 per-tensor layout; `verify` recomputes content hashes and cross-checks the
 packed byte totals against the roofline accounting, exiting non-zero on
-any mismatch. Restoring a training checkpoint (``--ckpt-dir``) waits for
-the port of ``training/checkpoint.py`` and is refused until then.
+any mismatch. ``--ckpt-dir`` restores the latest training checkpoint there
+(written by either package's trainer) in place of the random weights.
 """
 from __future__ import annotations
 
@@ -31,20 +31,23 @@ def _cmd_export(args) -> int:
     from repro_torch.core import ptq
     from repro_torch.data import synthetic
     from repro_torch.models import api
+    from repro_torch.training import checkpoint as ckpt
 
     from .store import export_artifact
 
-    if args.ckpt_dir:
-        raise SystemExit(
-            "export: --ckpt-dir needs the training checkpoint reader "
-            "(training/checkpoint.py), which the port does not have yet "
-            "(ROADMAP Queue 1 item 8); no random weights are substituted")
     dev = devices.resolve(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init(gen, cfg, device=dev)
-    print("no checkpoint — random init (demo mode)")
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        restored, man = ckpt.restore(args.ckpt_dir,
+                                     {"params": params, "opt": None},
+                                     device=dev)
+        params = restored["params"]
+        print(f"loaded checkpoint step {man['step']}")
+    else:
+        print("no checkpoint — random init (demo mode)")
 
     src = synthetic.make_source(cfg, args.calib_batch, args.calib_len, 0)
     calib = [src.batch(i) for i in range(args.calib_batches)]

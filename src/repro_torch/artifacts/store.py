@@ -116,14 +116,7 @@ def quant_mode_from_json(d: dict) -> QuantMode:
 # Export
 # ---------------------------------------------------------------------------
 
-def export_artifact(result, cfg: ArchConfig, out_dir, *,
-                    extra: dict | None = None) -> pathlib.Path:
-    """Write ``result`` (a PTQResult of torch tensors on any device) as an
-    artifact directory and return its path. Packing runs where the weights
-    live; only the bytes come to the host. The write is atomic (tmp dir +
-    rename). Raises ArtifactError for an unquantized result, a format that
-    is not 4-bit packable, or a weight off the MX grid."""
-    qm = result.qm
+def _pack_fmt(qm: QuantMode) -> str:
     if not qm.enabled:
         raise ArtifactError(
             "PTQResult is unquantized (method 'fp'); the artifact store "
@@ -132,8 +125,39 @@ def export_artifact(result, cfg: ArchConfig, out_dir, *,
     if wcfg is None:
         raise ArtifactError("QuantMode carries no MXConfig to pack with")
     packing._check_packable(wcfg.fmt, wcfg.block_size, wcfg.scale_mode)
-    fmt = wcfg.fmt
+    return wcfg.fmt
 
+
+def pack_params(result) -> dict:
+    """The serving tree of a quantized PTQResult, in memory: each quantized
+    linear weight as a ``PackedWeight`` (the bytes ``export_artifact``
+    writes), every other leaf as it is — what an export then
+    ``load_artifact`` give, without the disk. Raises ArtifactError as the
+    export does."""
+    fmt = _pack_fmt(result.qm)
+    flat = _flatten(result.params)
+    for key, leaf in flat.items():
+        if _is_quantized_key(key, leaf):
+            bundle = packing.pack_weight(leaf, fmt)
+            if not torch.equal(packing.unpack_weight(bundle, leaf.dtype),
+                               leaf):
+                raise ArtifactError(f"weight {key!r} is not on the {fmt} "
+                                    f"grid")
+            flat[key] = packing.PackedWeight(
+                bundle["codes_packed"], bundle["scales_e8m0"], fmt,
+                _dtype_name(leaf))
+    return _nest(flat)
+
+
+def export_artifact(result, cfg: ArchConfig, out_dir, *,
+                    extra: dict | None = None) -> pathlib.Path:
+    """Write ``result`` (a PTQResult of torch tensors on any device) as an
+    artifact directory and return its path. Packing runs where the weights
+    live; only the bytes come to the host. The write is atomic (tmp dir +
+    rename). Raises ArtifactError for an unquantized result, a format that
+    is not 4-bit packable, or a weight off the MX grid."""
+    qm = result.qm
+    fmt = _pack_fmt(qm)
     flat = _flatten(result.params)
     weights_npz: Dict[str, np.ndarray] = {}
     aux_npz: Dict[str, np.ndarray] = {}

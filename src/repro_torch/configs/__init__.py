@@ -1,18 +1,38 @@
 """Architecture config registry: ``get(name)`` / ``get_reduced(name)``.
 
-The port carries the configs of the slices it serves (Qwen2-0.5B,
-Qwen2-7B, the MoE family's Qwen1.5-MoE-A2.7B and Moonlight-16B-A3B) and
-TinyLlama-1.1B, the artifact CLI's default."""
+The port carries the configs of the families it serves: the dense
+transformers (DeepSeek-67B, Qwen2-7B, Qwen2-0.5B, TinyLlama-1.1B), the MoE
+family (Moonlight-16B-A3B, Qwen1.5-MoE-A2.7B), the encoder HuBERT-XLarge and
+the vlm InternVL2-26B. ``ARCH_IDS`` lists them in the JAX package's order;
+the recurrent families come with a later slice."""
 from __future__ import annotations
 
 import importlib
 
 from .base import ArchConfig  # noqa
 
-_ALIASES = {"qwen2-0.5b": "qwen2_0_5b", "qwen2-0-5b": "qwen2_0_5b",
-            "qwen2-7b": "qwen2_7b", "tinyllama-1.1b": "tinyllama_1_1b",
-            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-            "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b"}
+ARCH_IDS = [
+    "deepseek_67b",
+    "qwen2_7b",
+    "qwen2_0_5b",
+    "tinyllama_1_1b",
+    "moonshot_v1_16b_a3b",
+    "qwen2_moe_a2_7b",
+    "hubert_xlarge",
+    "internvl2_26b",
+]
+
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+_ALIASES.update({
+    "deepseek-67b": "deepseek_67b",
+    "qwen2-7b": "qwen2_7b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "hubert-xlarge": "hubert_xlarge",
+    "internvl2-26b": "internvl2_26b",
+})
 
 
 def canonical(name: str) -> str:
@@ -28,3 +48,6 @@ def get_reduced(name: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.REDUCED
 
+
+def all_configs():
+    return {i: get(i) for i in ARCH_IDS}

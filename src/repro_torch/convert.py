@@ -1,10 +1,15 @@
-"""Parameter trees (and transform sets) from the JAX package's layout to
-the port's.
+"""Parameter trees, AdamW states and transform sets from the JAX
+package's layout to the port's.
 
 The JAX package keeps parameters as nested dicts of arrays with
 layer-stacked leaves, and packed weights as ``PackedWeight`` nodes; the port
 keeps the same tree with torch tensors and its own ``PackedWeight``. Both
-packages then compute on the same weights, byte for byte.
+packages then compute on the same weights, byte for byte. This covers every
+transformer family: a vlm's or encoder's tree has no ``embed`` and, after
+the PTQ fold, an ``input_transform`` ({"a", "v"}) subtree. bfloat16 leaves
+(numpy arrays of ``ml_dtypes.bfloat16``, as JAX hands them out) keep their
+bits. A checkpoint on disk needs no conversion: ``training.checkpoint``
+reads the JAX package's format.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 from repro_torch import devices
 from repro_torch.core.folding import TransformSet
 from repro_torch.kernels.packing import PackedWeight
+from repro_torch.training.optimizer import AdamWState
 
 
 def params_from_numpy(tree, device=None):
@@ -33,7 +39,26 @@ def params_from_numpy(tree, device=None):
             torch.from_numpy(np.array(get("codes_packed"), np.uint8)).to(device),
             torch.from_numpy(np.array(get("scales_e8m0"), np.uint8)).to(device),
             str(get("fmt", "mxfp4")), str(get("dtype", "float32")))
-    return torch.from_numpy(np.array(tree)).to(device)
+    return _tensor(tree).to(device)
+
+
+def _tensor(a) -> torch.Tensor:
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def opt_state_from_numpy(state, device=None) -> AdamWState:
+    """A JAX ``AdamWState`` (or a dict with ``step``, ``m``, ``v``) -> the
+    port's: ``step`` an int, ``m`` and ``v`` float32 trees on ``device``
+    (the card unless the caller names another), so a JAX optimizer state
+    resumes in the port's trainer."""
+    get = state.get if isinstance(state, dict) else (
+        lambda k: getattr(state, k))
+    return AdamWState(step=int(np.asarray(get("step"))),
+                      m=params_from_numpy(get("m"), device),
+                      v=params_from_numpy(get("v"), device))
 
 
 def tset_from_numpy(tset, device=None):

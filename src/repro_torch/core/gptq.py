@@ -19,6 +19,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as dense
 from repro_torch.models.layers import rms_norm
@@ -132,14 +133,14 @@ def capture_hessians(params, cfg: ArchConfig, batches: List[dict],
     deployed GEMMs see it; the captured inputs are those before the
     activation quantizer."""
     L, d, f, qd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.q_dim
-    dev = params["embed"].device
+    dev = devices.of(params)
     z = lambda n: torch.zeros((L, n, n), dtype=torch.float64,  # noqa: E731
                               device=dev)
     hs = HessianStats(h_attn_in=z(d), h_attn_out=z(qd), h_ffn_in=z(d),
                       h_ffn_down=z(f))
     with torch.no_grad():
         for b in batches:
-            x = dense._embed(params, batch_to(b, dev)["inputs"])
+            x = dense.embed_inputs(params, cfg, batch_to(b, dev)["inputs"])
             pos = torch.arange(x.shape[1], device=dev)
             for l in range(L):
                 pl = dense._layer(params["blocks"], l)

@@ -24,6 +24,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
 from repro_torch.training import optimizer as opt
@@ -127,9 +128,14 @@ def student_qm(lx: LatmixConfig) -> QuantMode:
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A calibration batch (numpy or torch) as int64 tensors on device."""
-    return {k: torch.as_tensor(v, device=device).long()
-            for k, v in batch.items()}
+    """A calibration batch (numpy or torch) on device: integer leaves
+    (tokens, labels) as int64, float leaves (stub-frontend embeddings) as
+    float32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=device)
+        out[k] = t.float() if t.is_floating_point() else t.long()
+    return out
 
 
 def _grads(loss: torch.Tensor, learn: dict) -> dict:
@@ -149,7 +155,7 @@ def learn_transforms(params, cfg: ArchConfig, lx: LatmixConfig,
     history); the history records the loss, task loss and gradient norm at
     every tenth of the steps and at the last, before that step's
     update."""
-    dev = params["embed"].device
+    dev = devices.of(params)
     omega = init_omega(prng.prng_key(lx.seed, dev), cfg, lx)
     qm = student_qm(lx)
     batches = [batch_to(b, dev) for b in calib_batches]

@@ -1,5 +1,5 @@
 """End-to-end PTQ pipeline of the port — every method of
-``repro.core.ptq`` for the dense family, under one interface:
+``repro.core.ptq``, for every transformer family, under one interface:
 
     result = apply_method(method, params, cfg, calib, fmt)
 
@@ -19,7 +19,10 @@ Methods (Table 1 / Table 2 / Table 6 rows):
   '*-block'         any learned method at block granularity (Table 2)
 
 Every transform-based method runs the same pipeline (fold norms -> learn
-or fix Ω -> fold -> weight quant), on the device of ``params``."""
+or fix Ω -> fold -> weight quant), on the device of ``params``. The JAX
+package's gates hold: GPTQ for the dense family only (the others take RTN
+weights), T2 wherever ``latmix.t2_applicable``; a stub-frontend family's T1
+stays as ``input_transform``."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
 
@@ -88,8 +92,9 @@ def apply_method(method: str, params, cfg: ArchConfig,
                  steps: int = 120, weight_quant: str = "gptq",
                  log=None) -> PTQResult:
     """Run ``method`` on ``params`` (a tensor tree on the device it runs
-    on) with the calibration batches ``calib`` (dicts of (B, S) 'inputs'
-    and 'labels', numpy or torch; 'fp' and 'rtn' need none)."""
+    on) with the calibration batches ``calib`` (dicts of 'inputs' — (B, S)
+    tokens or (B, S, d) embeddings — and (B, S) 'labels', numpy or torch;
+    'fp' and 'rtn' need none)."""
     block = method.endswith("-block")
     base_method = method[:-6] if block else method
     mxcfg = _mx_cfg(fmt)
@@ -127,7 +132,7 @@ def apply_method(method: str, params, cfg: ArchConfig,
 
 
 def eval_ppl(result: PTQResult, cfg: ArchConfig, tokens) -> float:
-    dev = result.params["embed"].device
+    dev = devices.of(result.params)
     return api.perplexity(result.params, cfg,
                           torch.as_tensor(tokens, device=dev).long(),
                           result.qm)
@@ -141,7 +146,7 @@ def zero_shot_proxy(result: PTQResult, cfg: ArchConfig, eval_batches,
     predictions at each position (method-independent), or uniformly when
     no teacher is given."""
     rng = np.random.default_rng(seed)
-    dev = result.params["embed"].device
+    dev = devices.of(result.params)
     correct = total = 0
     for bi, b in enumerate(eval_batches):
         with torch.no_grad():

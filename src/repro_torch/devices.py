@@ -29,3 +29,20 @@ def tree_to(tree, device: torch.device):
     if isinstance(tree, (torch.Tensor, PackedWeight)):
         return tree.to(device)
     return tree
+
+
+def of(tree) -> torch.device:
+    """The device of a parameter tree: that of its first tensor leaf in
+    key order (every family has ``ln_f``; the stub-frontend families have
+    no ``embed``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            dev = of(tree[k])
+            if dev is not None:
+                return dev
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    if isinstance(tree, PackedWeight):
+        return tree.codes_packed.device
+    return None

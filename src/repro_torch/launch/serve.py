@@ -1,6 +1,9 @@
-"""Serve a packed MX artifact with the port's engine.
+"""Serving entry point of the port: PTQ a model (from a training
+checkpoint, or random weights) and serve it, or serve a packed MX artifact.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --reduced --ckpt-dir DIR --method rtn --fmt mxfp4 [--export ART]
+    PYTHONPATH=src python -m repro_torch.launch.serve --artifact ART \
         --backend fused --scheduler wave --kv-layout contiguous \
         --kv-cache mxfp8 --requests 8 --prompt-len 64 --max-new 32 \
         [--temperature 0.8 --top-k 50 --top-p 0.95 --sample-seed 0] \
@@ -9,15 +12,25 @@
          --no-preemption --max-queue-depth N --admit-token-budget N] \
         [--http HOST:PORT --drain-timeout-s S] [--trace OUT.json] [--metrics]
 
+Without ``--artifact`` it runs the JAX package's ``--arch`` mode
+(``repro.launch.serve``): the arch's reduced config (``--full`` for the
+published one), the latest checkpoint under ``--ckpt-dir`` restored (a
+random init otherwise: "demo mode"), ``ptq.apply_method(--method, --fmt,
+--steps)`` on the synthetic calibration (3 batches of 8 x 64), the result
+exported as an artifact with ``--export``, then served with its weights
+packed as the artifact holds them (so ``--backend fused`` runs them through
+the GEMM kernel; the reference backend decodes them to the same values).
+With ``--artifact`` it loads an artifact either package exported and skips
+PTQ.
+
 Runs on the CUDA card (``--device cuda``, the default) or, when asked, on
 the CPU with the kernels' plain PyTorch versions (``--device cpu``). It
-loads the artifact (exported by either package), serves a synthetic wave
-of requests and prints throughput and the schedule counters as JSON; with
-``--http`` it serves the engine over HTTP/SSE instead
-(``repro_torch.serving.server``) until SIGTERM/SIGINT, then prints the
-drain report and exits 1 unless it is clean. ``--trace`` exports a Chrome
-trace of the run; ``--metrics`` prints the engine's Prometheus metrics,
-with the kernel launch counts, at exit.
+serves a synthetic wave of requests and prints throughput and the schedule
+counters as JSON; with ``--http`` it serves the engine over HTTP/SSE
+instead (``repro_torch.serving.server``) until SIGTERM/SIGINT, then prints
+the drain report and exits 1 unless it is clean. ``--trace`` exports a
+Chrome trace of the run; ``--metrics`` prints the engine's Prometheus
+metrics, with the kernel launch counts, at exit.
 """
 from __future__ import annotations
 
@@ -27,8 +40,20 @@ import json
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--artifact", required=True,
-                    help="packed artifact directory")
+    ap.add_argument("--artifact", default="",
+                    help="serve a packed artifact directory (skips PTQ)")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="restore the latest training checkpoint here "
+                         "(random weights when there is none)")
+    ap.add_argument("--method", default="latmix-lu")
+    ap.add_argument("--fmt", default="mxfp4")
+    ap.add_argument("--steps", type=int, default=60,
+                    help="transform-learning steps of --method")
+    ap.add_argument("--export", default="",
+                    help="export the PTQ result as a packed artifact")
     ap.add_argument("--backend", default="fused", choices=("ref", "fused"),
                     help="'fused' runs the packed weights and the quantized "
                          "KV pool through the CUDA kernels")
@@ -103,6 +128,7 @@ def main(argv=None) -> int:
     if args.spec_k > 0:
         args.scheduler = "continuous"   # spec decoding is continuous-only
 
+    from repro_torch.artifacts.store import pack_params
     from repro_torch.obs import Tracer
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.policy import SchedulingPolicy, SpecConfig
@@ -120,14 +146,20 @@ def main(argv=None) -> int:
                     or args.top_p < 1.0) else None)
     spec = (SpecConfig(k=args.spec_k, ngram_max=args.spec_ngram)
             if args.spec_k > 0 else None)
-    eng = Engine.from_artifact(
-        args.artifact, batch_size=args.batch,
-        max_len=max(args.max_len, args.prompt_len + args.max_new),
-        backend=args.backend, scheduler=args.scheduler, eos_id=args.eos_id,
-        kv_cache=args.kv_cache, kv_layout=args.kv_layout,
-        page_size=args.page_size, n_pages=args.n_pages,
-        tracer=Tracer() if args.trace else None, policy=policy, spec=spec,
-        device=args.device)
+    kw = dict(batch_size=args.batch,
+              max_len=max(args.max_len, args.prompt_len + args.max_new),
+              backend=args.backend, scheduler=args.scheduler,
+              eos_id=args.eos_id, kv_cache=args.kv_cache,
+              kv_layout=args.kv_layout, page_size=args.page_size,
+              n_pages=args.n_pages,
+              tracer=Tracer() if args.trace else None, policy=policy,
+              spec=spec, device=args.device)
+    if args.artifact:
+        eng = Engine.from_artifact(args.artifact, **kw)
+    else:
+        res, cfg = ptq_from_arch(args)
+        eng = Engine(pack_params(res) if res.qm.enabled else res.params,
+                     cfg, res.qm, **kw)
     if args.http:
         return _serve_http(eng, args)
     res = eng.throughput(n_requests=args.requests,
@@ -136,6 +168,45 @@ def main(argv=None) -> int:
     _obs_finish(eng, args)
     print(json.dumps(res, default=str))
     return 0
+
+
+def ptq_from_arch(args):
+    """The ``--arch`` mode's model: restore ``--ckpt-dir``'s latest
+    checkpoint (float32, as the JAX package restores it) or take a seeded
+    random init, run ``--method`` on the synthetic calibration, export if
+    asked. Returns (PTQResult, cfg)."""
+    import time
+
+    import torch
+
+    from repro_torch import configs, devices
+    from repro_torch.core import ptq
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    from repro_torch.training import checkpoint as ckpt
+
+    dev = devices.resolve(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get(args.arch))
+    params = api.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        tree, man = ckpt.restore(args.ckpt_dir,
+                                 {"params": params, "opt": None},
+                                 device=dev)
+        params = tree["params"]
+        print(f"loaded checkpoint step {man['step']}")
+    else:
+        print("no checkpoint — random init (demo mode)")
+    src = synthetic.make_source(cfg, 8, 64, 0)
+    calib = [src.batch(i) for i in range(3)]
+    t0 = time.time()
+    res = ptq.apply_method(args.method, params, cfg, calib, fmt=args.fmt,
+                           steps=args.steps)
+    print(f"PTQ [{args.method} / {args.fmt}] in {time.time()-t0:.0f}s")
+    if args.export:
+        print(f"exported artifact -> {res.export(cfg, args.export)}")
+    return res, cfg
 
 
 def _serve_http(eng, args) -> int:

@@ -1,8 +1,10 @@
 """Model API of the port, dispatching on ``cfg.family``: serving, the PTQ
 folds and the losses.
 
-The port serves the dense and moe families; the other families of the JAX
-package (hybrid, ssm, encoder, vlm) come with later slices and raise here."""
+The transformer families are ported: ``dense``, ``encoder`` (causal off, no
+decode path), ``vlm`` (no token embedding: a stub front end gives (B, S, d)
+embeddings) and ``moe``. The recurrent families of the JAX package
+(hybrid, ssm) come with a later slice and raise here."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +14,8 @@ from repro_torch.core.quantize import QuantMode
 
 from . import moe, transformer
 
-_FAMILY = {"dense": transformer, "moe": moe}
+_FAMILY = {"dense": transformer, "encoder": transformer,
+           "vlm": transformer, "moe": moe}
 
 
 def module_for(cfg: ArchConfig):
@@ -36,6 +39,10 @@ def forward(params, cfg: ArchConfig, inputs,
 def prefill(params, cfg: ArchConfig, inputs,
             qm: QuantMode = QuantMode.off(), max_len: int | None = None,
             kv_quant=None):
+    """Run the prompt, return (last logits, cache); ``kv_quant`` stores
+    the cache MX-packed."""
+    if cfg.family == "encoder":
+        raise ValueError("encoder-only arch has no decode/prefill step")
     return module_for(cfg).prefill(params, cfg, inputs, qm, max_len=max_len,
                                    kv_quant=kv_quant)
 
@@ -48,6 +55,10 @@ def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
 
 def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
            qm: QuantMode = QuantMode.off()):
+    """One decode step; ``cur_len`` an int shared by the lanes or a (B,)
+    tensor of per-lane fills."""
+    if cfg.family == "encoder":
+        raise ValueError("encoder-only arch has no decode step")
     return module_for(cfg).decode(params, cfg, cache, inputs, cur_len, qm)
 
 
@@ -108,15 +119,41 @@ def fold(params, cfg: ArchConfig, tset):
 # Losses
 # ---------------------------------------------------------------------------
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lf = logits.float()
+    return (torch.logsumexp(lf, dim=-1)
+            - torch.gather(lf, -1, labels.long()[..., None])[..., 0])
+
+
+class _CEMean(torch.autograd.Function):
+    """Mean token CE whose backward recomputes the f32 softmax from the
+    saved logits, as the JAX package's custom VJP does: the (tokens ×
+    vocab) f32 buffers stay transient, and the gradient is its formula,
+    (softmax - onehot) * g / n in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(logits, labels)
+        return _nll(logits, labels).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        p = torch.softmax(logits.float(), dim=-1)
+        idx = labels.long()[..., None]
+        p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0,
+                                           device=p.device))
+        return (p * (g / labels.numel())).to(logits.dtype), None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Token-level CE: logits (..., V), labels (...) int; the mean over
-    tokens, or over the tokens where ``mask`` is set."""
-    lf = logits.float()
-    nll = (torch.logsumexp(lf, dim=-1)
-           - torch.gather(lf, -1, labels.long()[..., None])[..., 0])
+    tokens (:class:`_CEMean`), or over the tokens where ``mask`` is
+    set."""
     if mask is None:
-        return nll.mean()
+        return _CEMean.apply(logits, labels)
+    nll = _nll(logits, labels)
     mask = mask.to(nll.dtype)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
@@ -124,9 +161,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def lm_loss(params, cfg: ArchConfig, batch: dict,
             qm: QuantMode = QuantMode.off(),
             aux_coefs=(0.01, 1e-3)) -> torch.Tensor:
-    """Next-token loss. batch: {"inputs": (B, S) tokens, "labels": (B,
-    S)[, "mask": (B, S)]}. The MoE family adds its router losses,
-    ``aux_coefs`` times (load balance, z-loss)."""
+    """Next-token loss for the causal families, per-frame CE for encoders
+    (``data.synthetic`` makes the labels of each). batch: {"inputs": (B,
+    S) tokens or (B, S, d) embeddings, "labels": (B, S)[, "mask": (B,
+    S)]}. The MoE family adds its router losses, ``aux_coefs`` times (load
+    balance, z-loss)."""
     module_for(cfg)
     if cfg.family == "moe":
         logits, (lbl, zl) = moe.forward(params, cfg, batch["inputs"], qm,

@@ -194,7 +194,7 @@ def forward(params, cfg: ArchConfig, inputs,
             qm: QuantMode = QuantMode.off(), return_aux: bool = False):
     """inputs (B, S) tokens -> logits (B, S, V); with ``return_aux`` also
     the layer means of the load-balance and z losses."""
-    x = dense._embed(params, inputs)
+    x = dense.embed_inputs(params, cfg, inputs)
     pos = torch.arange(x.shape[1], device=x.device)
     lbl = zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):

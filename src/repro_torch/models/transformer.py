@@ -1,6 +1,9 @@
-"""Dense decoder-only transformer (llama-style: pre-RMSNorm, GQA + RoPE,
-SwiGLU) — the port of ``repro.models.transformer``: serving, and the norm
-and transform folds of the PTQ pipeline.
+"""Dense transformer (llama-style: pre-RMSNorm, GQA + RoPE, SwiGLU) — the
+port of ``repro.models.transformer``: training forward, serving, and the
+norm and transform folds of the PTQ pipeline. It serves the families
+``dense``, ``encoder`` (``causal=False``, no decode path) and ``vlm``
+(``embed_inputs=False``: a stub front end gives (B, S, d) embeddings, and
+the PTQ fold leaves T1 as ``params["input_transform"]``).
 
 Parameters are the JAX package's nested dict with layer-stacked leaves
 (``blocks/wq`` is ``(L, d, q_dim)``, a ``PackedWeight`` when served from an
@@ -14,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
@@ -296,19 +300,38 @@ def ffn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
 # Forward / caches / prefill / decode, contiguous and paged
 # ---------------------------------------------------------------------------
 
-def _embed(params, inputs):
-    return params["embed"][inputs.long()]
+def embed_inputs(params, cfg: ArchConfig, inputs):
+    """Tokens (..., S) through the embedding table, or — the stub-frontend
+    families — (..., S, d) embeddings as given, through the folded T1
+    (``x @ a + v``) once PTQ has left one in ``params``."""
+    if cfg.embed_inputs:
+        return params["embed"][inputs.long()]
+    if "input_transform" in params:
+        t = params["input_transform"]
+        return inputs @ t["a"].to(inputs.dtype) + t["v"].to(inputs.dtype)
+    return inputs
 
 
 def forward(params, cfg: ArchConfig, inputs,
             qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
-    """inputs (B, S) int tokens -> logits (B, S, V)."""
-    x = _embed(params, inputs)
+    """inputs (B, S) int tokens or (B, S, d) embeddings -> logits (B, S,
+    V). Under autograd with ``cfg.remat`` each block is recomputed in the
+    backward (``torch.utils.checkpoint``), as the JAX package's
+    ``jax.checkpoint`` of its scan body."""
+    x = embed_inputs(params, cfg, inputs)
     pos = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def block(x, p):
+        x, _, _ = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
+        return ffn(x, p, cfg, qm)
+
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
-        x, _, _ = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
-        x = ffn(x, p, cfg, qm)
+        if remat:
+            x = _ckpt.checkpoint(block, x, p, use_reentrant=False)
+        else:
+            x = block(x, p)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm)
 
@@ -346,7 +369,7 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
     that follow (rows past S are zeros); ``kv_quant`` stores it MX-packed —
     ``PackedKV.from_dense`` of the padded cache, so the prompt attends its
     own dense k/v and quantization applies to what decode reads back."""
-    x = _embed(params, inputs)
+    x = embed_inputs(params, cfg, inputs)
     B, S = x.shape[0], x.shape[1]
     pos = torch.arange(S, device=x.device)
     ks, vs = [], []
@@ -377,7 +400,7 @@ def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
     ``last_idx`` is the index within the chunk of the last real prompt
     token (trailing pads write rows that stay masked until decode
     overwrites them). Returns (logits (B, V) at last_idx, cache)."""
-    x = _embed(params, inputs)
+    x = embed_inputs(params, cfg, inputs)
     C = x.shape[1]
     pos = start + torch.arange(C, device=x.device)
     for i in range(cfg.n_layers):
@@ -394,9 +417,14 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
            qm: QuantMode = QuantMode.off(), ffn=ffn_sublayer):
     """One decode step over the contiguous cache. inputs (B,) tokens;
     cur_len the cache fill — an int shared by the lanes (wave scheduler) or
-    a (B,) tensor of per-lane fills (continuous scheduler). Returns (logits
-    (B, V), cache)."""
-    x = _embed(params, inputs[:, None])
+    a (B,) tensor of per-lane fills (continuous scheduler). A stub-frontend
+    family takes (B, d) embeddings, cast to the cache's dtype as the JAX
+    package casts them. Returns (logits (B, V), cache)."""
+    x = embed_inputs(params, cfg, inputs[:, None])
+    if not cfg.embed_inputs:
+        ck = cache["k"]
+        x = x.to(getattr(torch, ck.dtype) if isinstance(ck, PackedKV)
+                 else ck.dtype)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x, _, _ = attn_sublayer_decode(x, p, cfg, qm, cache["k"][i],
@@ -415,7 +443,7 @@ def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
     and ``last_idx`` (index within the chunk of the last real token) are
     ints shared by the lanes or (B,) per-lane tensors. Returns (logits
     (B, V) at last_idx, cache)."""
-    x = _embed(params, inputs)
+    x = embed_inputs(params, cfg, inputs)
     dev = x.device
     C = x.shape[1]
     st = torch.as_tensor(start, device=dev).long()
@@ -443,7 +471,7 @@ def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
     """One decode step over a paged pool. inputs (B,) tokens; cur_len (B,)
     per-lane fills; block_tables (B, maxp). Returns (logits (B, V),
     cache)."""
-    x = _embed(params, inputs[:, None])
+    x = embed_inputs(params, cfg, inputs[:, None])
     bt = torch.as_tensor(block_tables, device=x.device).to(torch.int32)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
@@ -464,7 +492,7 @@ def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
     ``n_valid`` may be host tensors (no device sync). Returns (logits
     (B, C, V), cache): logits[:, j] follows input token j, as a sequential
     :func:`decode` of the same tokens would."""
-    x = _embed(params, inputs)
+    x = embed_inputs(params, cfg, inputs)
     C = x.shape[1]
     cl = torch.as_tensor(pos).long()
     nv = torch.as_tensor(n_valid, device=cl.device).long()
@@ -488,7 +516,7 @@ def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
     The engine reserves every page a request can reach at admission, so a
     rejected draft rolls back by rewinding the lane's position: its stale
     rows stay masked until a later step overwrites them."""
-    x = _embed(params, inputs)
+    x = embed_inputs(params, cfg, inputs)
     C = x.shape[1]
     cl = torch.as_tensor(pos).long()
     nv = torch.as_tensor(n_valid, device=cl.device).long()
@@ -527,10 +555,9 @@ def fold(params, cfg: ArchConfig, tset: fold_lib.TransformSet):
     """Fold T1/T2 (and the T3 inverse) into the weights; differentiable —
     the LATMiX student runs this inside its loss. Requires
     :func:`fold_norms` first. Every linear but ``wd`` gains a bias, and the
-    head gains ``bhead``."""
-    if not cfg.embed_inputs:
-        raise ValueError("the stub-frontend families' input_transform fold "
-                         "is not ported (dense token models only)")
+    head gains ``bhead``. T1 folds into the embedding table, or — the
+    stub-frontend families — stays as ``input_transform`` ({"a": A1, "v":
+    v1}), applied to the embeddings the front end gives."""
     p = dict(params)
     b = dict(p["blocks"])
     a1i = tset.a1_inv
@@ -550,7 +577,10 @@ def fold(params, cfg: ArchConfig, tset: fold_lib.TransformSet):
     if tset.t3_block:
         wd = fold_lib.fold_t3(wd, tset.t3_block)
     b["wd"] = wd
-    p["embed"] = fold_lib.fold_embed(p["embed"], tset.a1, tset.v1)
+    if cfg.embed_inputs:
+        p["embed"] = fold_lib.fold_embed(p["embed"], tset.a1, tset.v1)
+    else:
+        p["input_transform"] = {"a": tset.a1, "v": tset.v1}
     p["head"], p["bhead"] = fold_lib.fold_read(head_matrix(params, cfg), None,
                                                a1i, tset.v1)
     p["blocks"] = b

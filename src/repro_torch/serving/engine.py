@@ -265,7 +265,8 @@ class Request:                         # a handle, not a value
     ``ttft_deadline_ms`` (submit -> first token) override the policy's
     defaults. ``request_id`` keys :meth:`Engine.cancel`; ``retries``,
     ``preemptions`` and ``not_before`` are preemption bookkeeping; ``_gen``
-    keeps the emitted tokens across preemptions."""
+    keeps the emitted tokens across preemptions, and ``_steps`` the shape
+    of the steps that wrote their KV."""
 
     prompt: np.ndarray                  # (S,) int32
     max_new: int = 16
@@ -291,6 +292,10 @@ class Request:                         # a handle, not a value
     # with the key of (seed, i), so a run is replayable
     sampling: Optional[SamplingParams] = None
     _gen: List[int] = dataclasses.field(default_factory=list)
+    # the steps that wrote this request's KV rows after its prompt, in
+    # order: (0, 1) a decode step, (C, n) a C-slot verify step whose first
+    # n rows were kept; :meth:`Engine._replay` repeats them on a resume
+    _steps: List[tuple] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -303,10 +308,14 @@ class _Slot:
     remaining: int           # decode budget left
 
 
-# the ROADMAP slice (Queue 1) that brings each family the port cannot serve
-_FAMILY_SLICE = {"vlm": "the model-zoo (Queue 1 item 4)",
-                 "hybrid": "the recurrent-families (Queue 1 item 9)",
-                 "ssm": "the recurrent-families (Queue 1 item 9)"}
+# why the engine refuses a vlm: every scheduler feeds it token prompts
+VLM_REFUSAL = (
+    "family 'vlm' takes (B, S, d) stub-frontend embeddings, but every "
+    "scheduler feeds token prompts: the continuous and paged paths need a "
+    "token-embedding family (dense/moe), and the wave scheduler's token "
+    "prompts do not unpack as embeddings (the JAX engine builds and then "
+    "fails on its first request). Serve a vlm through api.prefill / "
+    "api.decode")
 
 
 class Engine:
@@ -392,11 +401,13 @@ class Engine:
                 "speculative decoding (spec=...) requires "
                 "scheduler='continuous': drafts are proposed per slot from "
                 "each request's own emitted tokens")
+        if cfg.family == "vlm":
+            raise ValueError(VLM_REFUSAL)
         if cfg.family not in ("dense", "moe") or not cfg.embed_inputs:
             raise ValueError(
                 f"family {cfg.family!r} is not ported yet: the port serves "
-                f"dense and moe; {_FAMILY_SLICE.get(cfg.family, 'a later')}"
-                f" slice brings it")
+                f"dense and moe; the recurrent families come with a later "
+                f"slice")
         self.policy = policy if policy is not None else SchedulingPolicy()
         self.spec = spec
         self._faults = faults
@@ -1023,39 +1034,83 @@ class Engine:
 
     def _replay(self, slot: int, req: Request, pos0: int) -> torch.Tensor:
         """Bring a resumed request's lane back to where it was evicted:
-        its prompt is prefilled (its KV ends at ``pos0``); decode its
-        emitted tokens one by one at positions ``pos0``, ``pos0 + 1``, ...
-        and return the last step's (V,) logits row, which picks its next
-        token. These are the decode steps of the uninterrupted run, over
-        the same B-lane batch (the flash-decode split depends on B), so
-        the lane's KV and logits are bit for bit that run's. The other
-        lanes ride along: paged on the scrap page; contiguous, a live lane
-        rewrites its last token's KV at its position (its next step writes
-        the same row again) and an idle lane its stale row 0. The fault
-        points do not fire here."""
+        its prompt is prefilled (its KV ends at ``pos0``); rewrite the KV
+        of its emitted tokens through steps of the kind and shape that
+        first wrote them (``req._steps``), then run its last token through
+        the step the engine would run next, and return that step's (V,)
+        logits row, which picks the next token.
+
+        A decode record is a decode step over the B-lane batch (the
+        flash-decode split depends on B). A verify record (C, n) is a
+        C-slot verify step over the B lanes with the n kept tokens in the
+        lane's first slots and n_valid = n: M = B·C keeps the GEMM's route
+        (``ops.GEMV_MAX_M``) and the plain verify attention its shapes, and
+        a row depends only on its own inputs and on the keys before it, so
+        the rejected drafts of the run need not be known. The lane's KV and
+        logits are then bit for bit the uninterrupted run's. The other
+        lanes ride along without writing: paged on the scrap page, and
+        under verify with n_valid 0; contiguous decode, a live lane
+        rewrites its last token's KV at its position (its next step
+        writes the same row again) and an idle lane its stale row 0. The
+        fault points do not fire here."""
         paged = self.kv_layout == "paged"
-        cur = np.zeros(self.B, np.int32)
-        pos = np.zeros(self.B, np.int32)
+        toks = req._gen
+        if sum(n for _, n in req._steps) != len(toks) - 1:
+            raise RuntimeError(
+                f"resume of {req.request_id!r}: recorded steps cover "
+                f"{sum(n for _, n in req._steps)} rows for {len(toks)} "
+                f"emitted tokens")
+        tables_d = None
         if paged:
             tables = np.zeros_like(self._tables)
             tables[slot] = self._tables[slot]
             tables_d = self._tensor(tables)
-        else:
+        nxt = (self.spec.k + 1 if self.spec is not None else 0, 1)
+        logits, a = None, 0
+        for C, n in [*req._steps, nxt]:
+            if C == 0:
+                logits = self._replay_decode(slot, toks[a], pos0 + a,
+                                             tables_d)
+            else:
+                logits = self._replay_verify(slot, toks[a:a + n], pos0 + a,
+                                             C, tables_d)[:, n - 1]
+            a += n
+            self._c_replay_steps.inc()
+        req._steps.append(nxt)
+        return logits[slot]
+
+    def _replay_decode(self, slot: int, tok: int, pos: int, tables_d):
+        cur = np.zeros(self.B, np.int32)
+        pv = np.zeros(self.B, np.int32)
+        if tables_d is None:
             for i, sl in enumerate(self._slots):
                 if sl is not None:
-                    cur[i], pos[i] = sl.toks[-1], sl.pos
-        for j, tok in enumerate(req._gen):
-            cur[slot], pos[slot] = tok, pos0 + j
-            if paged:
-                logits, self._cache = api.decode_paged(
-                    self.params, self.cfg, self._cache, self._tensor(cur),
-                    self._tensor(pos), tables_d, self.qm)
-            else:
-                logits, self._cache = api.decode(
-                    self.params, self.cfg, self._cache, self._tensor(cur),
-                    self._tensor(pos), self.qm)
-            self._c_replay_steps.inc()
-        return logits[slot]
+                    cur[i], pv[i] = sl.toks[-1], sl.pos
+        cur[slot], pv[slot] = tok, pos
+        if tables_d is not None:
+            logits, self._cache = api.decode_paged(
+                self.params, self.cfg, self._cache, self._tensor(cur),
+                self._tensor(pv), tables_d, self.qm)
+        else:
+            logits, self._cache = api.decode(
+                self.params, self.cfg, self._cache, self._tensor(cur),
+                self._tensor(pv), self.qm)
+        return logits
+
+    def _replay_verify(self, slot: int, kept: List[int], pos: int, C: int,
+                       tables_d):
+        toks = np.zeros((self.B, C), np.int32)
+        pv = np.zeros(self.B, np.int64)
+        nv = np.zeros(self.B, np.int64)
+        toks[slot, :len(kept)] = kept
+        pv[slot], nv[slot] = pos, len(kept)
+        args = (self.params, self.cfg, self._cache, self._tensor(toks),
+                torch.from_numpy(pv), torch.from_numpy(nv))
+        if tables_d is not None:
+            logits, self._cache = api.verify_paged(*args, tables_d, self.qm)
+        else:
+            logits, self._cache = api.verify(*args, self.qm)
+        return logits
 
     def _ensure_pool(self) -> None:
         if self._cache is not None:
@@ -1708,6 +1763,7 @@ class Engine:
                     done.append(sl.req)
                     continue
                 tok = int(host[i, step])
+                sl.req._steps.append((0, 1))
                 self._emit(sl, tok)
                 sl.remaining -= 1
                 if sl.remaining == 0 or tok == self.eos_id:
@@ -1808,6 +1864,7 @@ class Engine:
                     # stop at (and include) the first EOS; later accepted
                     # drafts are dropped with the lane
                     emitted = emitted[:int(hits[0]) + 1]
+            sl.req._steps.append((C, len(emitted)))
             for t in emitted:
                 self._emit(sl, int(t))
             sl.remaining -= len(emitted)

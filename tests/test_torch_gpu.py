@@ -628,3 +628,111 @@ def test_ste_quantizer_on_the_card_matches_the_cpu(cuda_device):
         w = torch.randn(x.shape, generator=g).to(cuda_device)
         (grad,) = torch.autograd.grad((q * w).sum(), xd)
         assert torch.equal(grad, w)
+
+
+# ---------------------------------------------------------------------------
+# The zoo's shapes: DeepSeek-67B (64 heads over 8 KV heads of 128, K = 8192
+# and 22016), InternVL2-26B (48 over 8: G = 6), HuBERT-XLarge (K = 1280 and
+# 5120), and the Trainer's exact resume on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,t3", ((4, 1280, 5120, False),
+                                      (6000, 1280, 5120, False),
+                                      (6000, 5120, 1280, True),
+                                      (4, 22016, 8192, True),
+                                      (1024, 22016, 8192, True)))
+def test_cuda_gemm_at_the_zoo_widths(cuda_device, M, K, N, t3):
+    x, pw = _gemm_operands(cuda_device, M, K, N, "mxfp4", 9)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0, t3=t3)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0,
+                                   t3=t3)
+    assert y.shape == (M, N)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+
+
+def _decode_heads(dev, layout, H, kvh, Dh, fmt, seed=12):
+    """Both flash decodes over four lanes filled to [1330, 1180, 250, 140]
+    of 2048 rows (paged: 64-row pages, scattered) at H over kvh heads of
+    Dh; returns (kernel, plain)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fills, S, D = [1330, 1180, 250, 140], 2048, kvh * Dh
+    B = len(fills)
+    kl = torch.tensor(fills, dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, Dh, generator=g, device=dev)
+    if layout == "contiguous":
+        kc, ks = kv_encode(torch.randn(B, S, D, generator=g, device=dev),
+                           fmt)
+        vc, vs = kv_encode(torch.randn(B, S, D, generator=g, device=dev),
+                           fmt)
+        args = (q, kc, ks, vc, vs, kl - 1, kl, fmt)
+        return tops.mx_flash_decode(*args), tref.mx_attention_ref(*args)
+    P, maxp = 64, S // 64
+    n_pages = 1 + B * maxp
+    kc, ks = kv_encode(torch.randn(n_pages, P, D, generator=g, device=dev),
+                       fmt)
+    vc, vs = kv_encode(torch.randn(n_pages, P, D, generator=g, device=dev),
+                       fmt)
+    bt = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).reshape(
+        B, maxp).to(torch.int32)
+    args = (q, kc, ks, vc, vs, bt, kl - 1, kl, fmt)
+    return (tops.mx_flash_decode_paged(*args),
+            tref.mx_attention_paged_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxfp4"))
+@pytest.mark.parametrize("layout,H,kvh", (("paged", 64, 8),
+                                          ("contiguous", 64, 8),
+                                          ("contiguous", 48, 8),
+                                          ("paged", 48, 8)))
+def test_cuda_decode_at_the_zoo_heads(cuda_device, layout, H, kvh, fmt):
+    """The flash decodes at DeepSeek-67B's G = 8 and InternVL2-26B's G = 6,
+    heads of 128."""
+    out, ref = _decode_heads(cuda_device, layout, H, kvh, 128, fmt)
+    assert (out - ref).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("mxfp8", "mxfp4"))
+def test_cuda_prefill_at_deepseek_heads(cuda_device, fmt):
+    """The flash prefill at G = 8, heads of 128, on 1024-row pages (the
+    engine's page at attn_chunk 1024)."""
+    outs, refs, _ = _prefill_case(cuda_device, fmt, 256, [0, 1024, 300, 7],
+                                  P=1024, maxp=2, H=64, kvh=8, Dh=128)
+    _prefill_close(outs, refs)
+
+
+@pytest.mark.gpu
+def test_trainer_resume_is_exact_on_the_card(cuda_device, tmp_path):
+    """A reduced Qwen2-0.5B (bf16 parameters, remat) trained 8 steps, and
+    again with a failure at step 6 resumed from the step-4 checkpoint: the
+    resumed losses and the final parameters equal the uninterrupted run's
+    bit for bit (the Trainer runs its steps under deterministic
+    algorithms)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-0.5b"),
+                              dtype="bfloat16", remat=True)
+
+    def trainer(d):
+        return Trainer(cfg, TrainConfig(
+            steps=8, batch_size=8, seq_len=128, ckpt_every=4,
+            ckpt_dir=str(d), log_every=1,
+            opt=opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)),
+            device=cuda_device, log=lambda *_: None)
+    a = trainer(tmp_path / "a")
+    a.train()
+    b = trainer(tmp_path / "b")
+    with pytest.raises(RuntimeError, match="injected failure"):
+        b.train(fail_at=6)
+    b2 = trainer(tmp_path / "b")
+    b2.train()
+    la = {m["step"]: m["loss"] for m in a.metrics}
+    assert [m["loss"] for m in b2.metrics] == [la[s] for s in range(5, 9)]
+    for x, y in zip(opt.tree_leaves(a.params), opt.tree_leaves(b2.params)):
+        assert torch.equal(x, y)

@@ -14,10 +14,12 @@ invariants only, in both packages.
 
 The two engines resume a preempted request differently: the JAX engine
 re-prefills prompt + emitted tokens, the port prefills the prompt and
-replays the emitted tokens through decode steps (bit-identical to the
-uninterrupted run on the card too). Where a scenario resumes a request,
-the port's prefill chunk count is held to at most the JAX engine's and its
-replay steps to the tokens its requests had emitted when evicted.
+replays the emitted tokens through the steps that first wrote their KV:
+decode steps, or under spec verify steps of the same shape (bit-identical
+to the uninterrupted run on the card too). Where a scenario resumes a
+request, the port's prefill chunk count is held to at most the JAX
+engine's and its replay steps to the tokens its requests had emitted when
+evicted (under spec, to its recorded verify steps plus one).
 """
 import types
 from unittest import mock
@@ -96,14 +98,16 @@ def _same(pkgs, scenario):
     preemptions per request, and the lifecycle counters, all equal — but
     for a resume's prefill chunks (module docstring): the port runs at
     most the JAX engine's, and one replay step for each token a requeued
-    request had emitted when it was evicted."""
+    request had emitted when it was evicted — under spec, one for each
+    verify step that wrote its KV plus the one that picks its next
+    token."""
     jr, je = scenario(pkgs[0])
     evicted = []                    # tokens emitted by each requeued one
     preempt = TEngine._preempt
 
     def spy(self, lane, done, reason):
         req = self._slots[lane].req
-        n = len(req._gen)
+        n = len(req._steps) + 1 if self.spec is not None else len(req._gen)
         preempt(self, lane, done, reason)
         if not req.state.terminal:
             evicted.append(n)
@@ -508,3 +512,115 @@ def test_allocator_flush_cache_evicts_only_cached_pages():
         out.append((n, a.check(), a.lookup(bytes([1]))))
     assert out[0] == out[1] == (2, {"free": 6, "cached": 0, "in_use": 1,
                                     "evicted": 2}, None)
+
+
+# ---------------------------------------------------------------------------
+# Resume under speculative decoding: the replay repeats the verify shapes
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+
+
+def _packed_fused(port):
+    """The tiny model, RTN mxfp4 and packed, under the fused backend: every
+    linear but the head goes through ``ops.mx_gemm_packed`` (its plain
+    version here), whose M the replay test reads."""
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+
+    res = ptq.apply_method("rtn", port.params, port.cfg)
+    return pack_params(res), res.qm.with_backend("fused")
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_spec_resume_replays_the_verify_shapes(pkgs, layout):
+    """A spec request (k = 3) preempted by a higher-priority arrival and
+    resumed: its tokens equal its uninterrupted run's, and the replay
+    rebuilds its lane through verify steps of the run's shape — every
+    packed GEMM of the replay at M = B·(k + 1), the run's verify M, never
+    a decode step's M = B — one verify forward for each recorded step plus
+    the step that picks the next token, as
+    ``serving_resume_replay_steps_total`` counts them. The recorded
+    boundaries cover the emitted tokens but the last."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api as tapi
+
+    port = pkgs[1]
+    params, qm = _packed_fused(port)
+    kw = (dict(**POOL) if layout == "paged" else
+          dict(batch_size=1, max_len=64, scheduler="continuous"))
+    B = kw["batch_size"]
+    spec = SpecConfig(k=SPEC_K)
+    # a prompt on which the tiny model's 8th and 9th verify steps keep 4
+    # rows each
+    pattern = np.random.default_rng(1).integers(0, 128, 8).astype(np.int32)
+
+    def reqs():
+        lo = TRequest(prompt=np.tile(pattern, 5), max_new=20, priority=0)
+        hi = _requests(port, [38], [8], seed=8, priority=5)[0]
+        return lo, hi
+
+    ms, forwards, inside = [], [], []
+    gemm = ops.mx_gemm_packed
+
+    def spy_gemm(x, *a, **k):
+        if inside:                      # the GEMMs of decode and verify
+            ms.append(x.reshape(-1, x.shape[-1]).shape[0])
+        return gemm(x, *a, **k)
+
+    def spy_step(name):
+        fn = getattr(tapi, name)
+
+        def run(*a, **k):
+            forwards.append((name, tuple(a[3].shape)))
+            inside.append(1)
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.pop()
+        return mock.patch.object(tapi, name, run)
+
+    with mock.patch.object(ops, "mx_gemm_packed", spy_gemm), \
+            spy_step("verify"), spy_step("verify_paged"), \
+            spy_step("decode"), spy_step("decode_paged"):
+        solo = TEngine(params, port.cfg, qm, spec=spec, device="cpu", **kw)
+        lo_ref, hi_ref = reqs()
+        solo.generate([lo_ref])
+        solo.generate([hi_ref])
+        run_ms = set(ms)
+
+        eng = TEngine(params, port.cfg, qm, spec=spec, device="cpu",
+                      policy=SchedulingPolicy(backoff_base_s=0.001), **kw)
+        lo, hi = reqs()
+        seen = {}
+        replay = TEngine._replay
+
+        def spy_replay(self, slot, req, pos0):
+            seen["steps"] = list(req._steps)
+            seen["gen"] = list(req._gen)
+            ms.clear()
+            forwards.clear()
+            row = replay(self, slot, req, pos0)
+            seen["ms"], seen["forwards"] = list(ms), list(forwards)
+            return row
+
+        with mock.patch.object(TEngine, "_replay", spy_replay):
+            eng.submit(lo)
+            for _ in range(9):          # admission, then 9 verify steps
+                eng.step()
+            assert _state(lo) == "running"
+            eng.submit(hi)
+            eng.drain()
+    assert _state(lo) == _state(hi) == "finished" and lo.preemptions == 1
+    np.testing.assert_array_equal(lo.out, lo_ref.out)
+    np.testing.assert_array_equal(hi.out, hi_ref.out)
+    C = SPEC_K + 1
+    assert run_ms == {B * C}, run_ms    # the run's GEMMs: verify steps only
+    steps = seen["steps"]
+    assert len(steps) == 9 and all(c == C for c, _ in steps), steps
+    assert sum(n for _, n in steps) == len(seen["gen"]) - 1
+    assert max(n for _, n in steps) > 1     # a step kept accepted drafts
+    assert set(seen["ms"]) == {B * C}, seen["ms"]
+    name = "verify_paged" if layout == "paged" else "verify"
+    assert seen["forwards"] == [(name, (B, C))] * (len(steps) + 1)
+    assert eng.stats()["resume_replay_steps"] == len(steps) + 1

@@ -209,12 +209,14 @@ def test_cli_exports_a_moe_artifact(tmp_path):
         cfg.n_layers, cfg.n_experts)
 
 
-@pytest.mark.parametrize("family,slice_", (("ssm", "Queue 1 item 9"),
-                                           ("hybrid", "Queue 1 item 9"),
-                                           ("vlm", "Queue 1 item 4")))
+@pytest.mark.parametrize("family,slice_", (("ssm", "recurrent families"),
+                                           ("hybrid", "recurrent families"),
+                                           ("vlm", "token prompts")))
 def test_engine_refuses_unported_families(family, slice_):
     """The JAX engine's gates, then the port's own: a family it does not
-    serve raises, naming the slice that brings it."""
+    serve raises, naming the slice that brings it (the recurrent ones) or
+    why (a vlm takes embeddings, and every scheduler feeds token
+    prompts)."""
     cfg = dataclasses.replace(tconfigs.get_reduced(QWEN), family=family)
     with pytest.raises(ValueError, match=slice_):
         TEngine({}, cfg, tptq.QuantMode.off(), device="cpu")

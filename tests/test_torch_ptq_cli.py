@@ -5,8 +5,8 @@ The port's ``latmix-lu`` artifact of the trained bench checkpoint (3
 steps, T3, mxfp4) verifies and loads in the JAX package, where its logits
 are the port's within 1e-2 of max |logit| (ROADMAP Queue 3, "MX ties").
 The CLI exports, inspects and verifies an artifact of the default reduced
-config, refuses ``--ckpt-dir`` and runs on the card unless asked for the
-CPU."""
+config, restores ``--ckpt-dir``'s checkpoint and runs on the card unless
+asked for the CPU."""
 import pathlib
 
 import jax.numpy as jnp
@@ -87,13 +87,32 @@ def test_artifact_cli_export_inspect_verify(tmp_path, capsys):
     assert cli.main(["verify", str(out)]) == 1
 
 
-def test_artifact_cli_refuses_checkpoints_and_needs_the_card(tmp_path):
-    """--ckpt-dir waits for the checkpoint reader and substitutes no random
-    weights; with no --device the export runs on the card or raises."""
-    with pytest.raises(SystemExit, match="checkpoint"):
-        cli.main(["export", "--ckpt-dir", str(tmp_path), "--device", "cpu",
-                  "--out", str(tmp_path / "x")])
-    assert not (tmp_path / "x").exists()
+def test_artifact_cli_refuses_checkpoints_and_needs_the_card(tmp_path,
+                                                            capsys):
+    """--ckpt-dir restores the latest training checkpoint there (the
+    artifact's unquantized leaves are the checkpoint's, byte for byte); an
+    empty --ckpt-dir falls back to the random init and says so; with no
+    --device the export runs on the card or raises."""
+    from repro_torch import configs
+    from repro_torch.training import checkpoint as tckpt
+
+    cfg = configs.get_reduced("tinyllama-1.1b")
+    params = tapi.init(torch.Generator().manual_seed(5), cfg, device="cpu")
+    params["ln_f"] = params["ln_f"] * 1.5
+    tckpt.save(tmp_path / "ck", 7, {"params": params})
+    assert cli.main(["export", "--ckpt-dir", str(tmp_path / "ck"),
+                     "--method", "rtn", "--calib-batches", "1", "--device",
+                     "cpu", "--out", str(tmp_path / "x")]) == 0
+    assert "loaded checkpoint step 7" in capsys.readouterr().out
+    tp, _, _ = t_load(tmp_path / "x", device="cpu")
+    np.testing.assert_array_equal(tp["ln_f"].numpy(),
+                                  params["ln_f"].numpy())
+    np.testing.assert_array_equal(tp["embed"].numpy(),
+                                  params["embed"].numpy())
+    assert cli.main(["export", "--ckpt-dir", str(tmp_path / "none"),
+                     "--method", "rtn", "--calib-batches", "1", "--device",
+                     "cpu", "--out", str(tmp_path / "z")]) == 0
+    assert "random init (demo mode)" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
             cli.main(["export", "--out", str(tmp_path / "y")])
