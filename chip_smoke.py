@@ -95,7 +95,25 @@ Phases, in order (each raises on failure; nothing is caught):
    checked and timed beside phase 2 (:func:`zoo_kernel_entries`), and
    (f), a preempted spec request (k = 4) resumed bit for bit on both
    continuous layouts, runs after phase 6 on phase 3's engines
-   (:func:`spec_resume_gate`).
+   (:func:`spec_resume_gate`);
+10. the recurrent families (:func:`recurrent_phase`): RecurrentGemma-2B
+   at its full config (26 layers, random weights, RTN mxfp4 with T3,
+   packed in memory, mxfp8 ring cache) and Mamba2-130M at its full config
+   (exported and loaded, ``kv_cache='none'``), each served by the wave
+   scheduler on the contiguous cache (4 lanes, max_len 4096) in two waves
+   of 4 x 32 greedy tokens: phase 3's prompts (bucketed to 2048) and four
+   of 2100 tokens (bucketed to 3072, past Griffin's 2048-token window),
+   with launch counts per wave (``launches_by_path`` ``rec_griffin``,
+   ``rec_griffin_long``, ``rec_mamba2``, ``rec_mamba2_long``), every kernel
+   call of a prefill and a decode step held against its plain version,
+   fused against reference, a decode step's wall against device time,
+   Griffin's first post-wrap decode step against the plain attention over
+   the ring and against the full forward, and the cost of an unbucketed
+   Mamba2 prefill; then (c) 10 Trainer steps of Mamba2-130M and 5 of
+   RecurrentGemma-2B's widths at 5 layers, and (d) ``latmix-lu`` for 10
+   steps at those widths, its first loss on the card against the CPU's.
+   The packed GEMM at their shapes is checked and timed beside phase 2
+   (:func:`rec_kernel_entries`).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -168,6 +186,19 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_profile(torch):
+    """A ``torch.profiler`` context that records the device's activity
+    only. Recording the host's operators as well slowed the run it
+    measured (phase 3's wave run on an H100: 10.0 s of wall against 4.8
+    s, at the same device time) and took minutes to read back."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+class LostEvents(AssertionError):
+    """Every record of :func:`device_split` with ``exact`` lost events."""
+
+
 def device_ms(torch, fn, iters: int, warmup: int = 3,
               exact: bool = True) -> float:
     """Mean device milliseconds per call of ``fn``: the durations
@@ -176,9 +207,12 @@ def device_ms(torch, fn, iters: int, warmup: int = 3,
     :func:`cuda_ms` this leaves out the host's time between launches. With
     ``exact``, every call launches the same kernels, so a record whose
     count of device events is not a multiple of ``iters`` lost some: it is
-    taken again. A whole decode step is thousands of operations, of which
-    the profiler may drop a few (seen on an H100: 27711 to 27714 events for
-    10 steps); it passes ``exact=False`` and takes the sum as recorded."""
+    taken again, and :class:`LostEvents` is raised after four such records
+    (seen on an H100: 38, 39, 29 and 35 events for 20 calls of a GEMM with
+    two events a call). A whole decode step is thousands of operations, of
+    which the profiler may drop a few (seen on an H100: 27711 to 27714
+    events for 10 steps); it passes ``exact=False`` and takes the sum as
+    recorded."""
     return sum(device_split(torch, fn, iters, warmup, exact).values())
 
 
@@ -186,14 +220,12 @@ def device_split(torch, fn, iters: int, warmup: int = 3,
                  exact: bool = True) -> dict:
     """:func:`device_ms` by kernel: {short kernel name (no namespace,
     template arguments or parameters): mean device ms per call}."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     counts = []
     for _ in range(4):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile(torch) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -209,8 +241,8 @@ def device_split(torch, fn, iters: int, warmup: int = 3,
                 out[name] = (out.get(name, 0.0)
                              + e.device_time_total / 1e3 / iters)
             return out
-    raise AssertionError(f"the profiler's device events ({counts}) are not "
-                         f"a multiple of the {iters} calls")
+    raise LostEvents(f"the profiler's device events ({counts}) are not a "
+                     f"multiple of the {iters} calls")
 
 
 def measure(torch, fn, iters: int, exact: bool = True):
@@ -218,10 +250,18 @@ def measure(torch, fn, iters: int, exact: bool = True):
     kernels of one stream cannot take longer than the wall time of their
     calls, so a device reading above the events' figure by more than 2% is
     a bad record: it is logged and both are taken again, and three bad
-    pairs in a row fail the run. ``exact`` as in :func:`device_ms`."""
+    pairs in a row fail the run. ``exact`` as in :func:`device_ms`; where
+    the profiler lost events in every record (:class:`LostEvents`), the
+    events' figure, an upper bound of the device time, stands for both,
+    and the log says so."""
     for _ in range(3):
         wall = cuda_ms(torch, fn, iters)
-        dev = device_ms(torch, fn, iters, exact=exact)
+        try:
+            dev = device_ms(torch, fn, iters, exact=exact)
+        except LostEvents as e:
+            log(f"  {e}: the device time is taken as the {wall:.4f} ms per "
+                f"call by events (an upper bound)")
+            return wall, wall
         if dev <= 1.02 * wall:
             return dev, wall
         log(f"  discarded: device reading {dev:.4f} ms per call above the "
@@ -683,14 +723,12 @@ def profile_serving(torch, eng, Request, cfg, seed: int, label: str) -> None:
     """torch.profiler over a second serving run of the same shape (fresh
     prompts): device time by kernel name and the device's busy share of
     the wall time."""
-    from torch.profiler import ProfilerActivity, profile
     reqs = [Request(prompt=p, max_new=32)
             for p in traffic(np.random.default_rng(seed + 1),
                              cfg.vocab_size)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         eng.generate(reqs)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -710,18 +748,21 @@ def profile_serving(torch, eng, Request, cfg, seed: int, label: str) -> None:
 
 
 def decode_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
-                      seed: int) -> None:
+                      seed: int, length: int = 1324, max_len: int = 2048,
+                      label: str = "") -> None:
     """Host against device time of one decode step at the wave's shape:
-    four lanes prefilled with 1324 tokens into a 2048-row cache, then
-    fused decode steps. The wall time per step (synchronized after each)
-    against the device time the profiler records per step: their
-    difference is what the host adds."""
+    four lanes prefilled with ``length`` tokens into a ``max_len``-row
+    cache, then fused decode steps (``transformer`` is any module with the
+    prefill / decode interface: a family module or ``models.api``). The
+    wall time per step (synchronized after each) against the device time
+    the profiler records per step: their difference is what the host
+    adds."""
     rng = np.random.default_rng(seed + 2)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1324))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, length))
                            .astype(np.int32), device=dev)
-    lg, cache = transformer.prefill(params, cfg, toks, qm, max_len=2048,
+    lg, cache = transformer.prefill(params, cfg, toks, qm, max_len=max_len,
                                     kv_quant=kv_quant)
-    state = {"tok": lg.argmax(dim=-1).to(torch.int32), "pos": 1324,
+    state = {"tok": lg.argmax(dim=-1).to(torch.int32), "pos": length,
              "cache": cache}
 
     def step():
@@ -741,8 +782,9 @@ def decode_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
     busy = device_ms(torch, step, n, warmup=0, exact=False)
-    log(f"decode step, wave shape (4 lanes at fill 1337+, contiguous mxfp8, "
-        f"fused, {cfg.n_layers} layers): wall {wall:.3f} ms, device "
+    label = label or ("decode step, wave shape (4 lanes at fill 1337+, "
+                      "contiguous mxfp8, fused")
+    log(f"{label}, {cfg.n_layers} layers): wall {wall:.3f} ms, device "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}% busy), host adds "
         f"{wall - busy:.3f} ms")
 
@@ -754,7 +796,6 @@ def prefill_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
     layers. The wall time per prefill (synchronized after each) against the
     device time the profiler records for it, and that device time by
     kernel name."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed + 3)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1324))
                            .astype(np.int32), device=dev)
@@ -771,8 +812,7 @@ def prefill_step_split(torch, transformer, params, cfg, qm, kv_quant, dev,
         run()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(torch) as prof:
         run()
         torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -3034,6 +3074,389 @@ def zoo_phase(torch, dev, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the recurrent families
+# ---------------------------------------------------------------------------
+
+REC_KW = dict(scheduler="wave", kv_layout="contiguous", batch_size=4,
+              max_len=4096)
+REC_WRAP = 2100           # wave (ii)'s prompts: bucket to 3072, past 2048
+REC_TRAIN = {"mamba2-130m": (None, 10), "recurrentgemma-2b": (5, 5)}
+REC_PTQ_LAYERS = 5        # (d): RecurrentGemma-2B's widths at this depth
+REC_CPU_LAYERS = 3        # (d): one super-block, the least depth with
+#                           every sublayer kind (2 layers would be two tails)
+RING_BAR = 1e-2           # post-wrap decode against the dense ring, of max
+
+
+def rec_gemms_per_forward(cfg) -> int:
+    """Packed-GEMM launches of one forward: Griffin's recurrent layers run
+    wx, wy, wor and the GeGLU's three (6), its attention layers q, k, v, o
+    and the GeGLU's (7); a Mamba2 block in_proj and out_proj (2). The LM
+    head stays in f32 (``quantize_head`` off)."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    return 19 * cfg.n_super_blocks + 6 * cfg.n_tail_rec
+
+
+def _wave_tokens(torch, dev, prompts, S):
+    """The wave scheduler's left-padded (B, S) prompt tokens."""
+    toks = np.zeros((len(prompts), S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    return torch.as_tensor(toks, device=dev)
+
+
+def rec_kernel_entries(torch, dev, seed):
+    """Phase 10's kernel rows, run beside phase 2: the packed GEMM at
+    Mamba2-130M's in_proj (768, 3352; N % 16 != 0, the byte-staged weight
+    route of both kernels) for a decode step (M = 4) and a 4 x 2048 wave
+    prefill (M = 8192), and at RecurrentGemma-2B's GeGLU widths: (2560,
+    7680) at M = 4 and 8192, (7680, 2560) with T3 at M = 4."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 101)
+    cases = (("rec_mamba2", 4, 768, 3352, False),
+             ("rec_mamba2", 8192, 768, 3352, False),
+             ("rec_griffin", 4, 2560, 7680, False),
+             ("rec_griffin", 4, 7680, 2560, True),
+             ("rec_griffin", 8192, 2560, 7680, False))
+    return [dict(gemm_case(torch, dev, gen, M, K, N, t3), path=path)
+            for path, M, K, N, t3 in cases]
+
+
+def _rec_engine_checks(eng, lw, st, cfg, label):
+    """Launch counts of a wave run: the packed GEMM rec_gemms_per_forward
+    times per forward (the prefill and each decode step), no other kernel
+    (the ring attention decodes in place: its key positions keep it off the
+    flash-decode contract)."""
+    want = rec_gemms_per_forward(cfg) * (1 + st["decode_steps"])
+    log(f"phase 10 {label}: {st['decode_steps']} decode steps, "
+        f"{rec_gemms_per_forward(cfg)} packed GEMMs a forward; launches {lw}"
+        f"; kv_bytes_resident {eng.kv_bytes_resident()}")
+    for name, n in lw.items():
+        if n != (want if name == "mx_gemm_packed" else 0):
+            raise AssertionError(f"phase 10 {label}: {name} launched {n}x, "
+                                 f"expected "
+                                 f"{want if name == 'mx_gemm_packed' else 0}")
+
+
+def rec_serve_cell(torch, dev, seed, card, params, cfg, qm, kv_cache, tag,
+                   art=None):
+    """(a) / (b): waves (i) and (ii) on the wave scheduler, fused, launch
+    counts per wave; the wave-(i) prefill and a decode step with every
+    kernel call held against its plain version; fused against reference
+    for wave (i) (prefill logits, tokens); a decode step's wall against
+    device time. Returns ({path: launches}, the wave-(ii) prompts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request
+
+    rng = np.random.default_rng(seed)
+    waves = {"": traffic(rng, cfg.vocab_size),
+             "_long": [rng.integers(0, cfg.vocab_size, REC_WRAP)
+                       .astype(np.int32) for _ in range(4)]}
+    kw = dict(REC_KW, kv_cache=kv_cache, device=dev)
+    launches = {}
+    fused = qm.with_backend("fused")
+    for suffix, prompts in waves.items():
+        t0 = time.perf_counter()
+        eng, reqs, lw, st = serve(torch, Engine, Request,
+                                  art if art is not None
+                                  else (params, cfg, qm),
+                                  prompts, cfg, tag=f" {tag}{suffix}", **kw)
+        S = eng._bucket_len(max(len(p) for p in prompts), 32)
+        _rec_engine_checks(eng, lw, st, cfg,
+                           f"{tag}{suffix} (prompts bucket to {S})")
+        launches[f"rec_{tag}{suffix}"] = lw
+        log(f"phase 10 {tag}{suffix}: wave served in "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+        if suffix:
+            continue
+        toks = _wave_tokens(torch, dev, prompts, S)
+        kvq = eng.kv_quant
+
+        def run(q):
+            with torch.no_grad():
+                lg, cache = api.prefill(params, cfg, toks, q,
+                                        max_len=eng.max_len, kv_quant=kvq)
+                lg2, _ = api.decode(params, cfg, cache,
+                                    lg.argmax(-1).to(torch.int32), S, q)
+            return lg, lg2
+
+        worst = teacher_forced(torch, ops, run, fused)
+        log(f"phase 10 {tag} teacher-forced, worst error per kernel call: "
+            + json.dumps(worst))
+        lf, lr = run(fused)[0], run(qm.with_backend("ref"))[0]
+        _logits_agree(torch, f"phase 10 {tag} prefill", lf, lr)
+        ref_eng = Engine(params, cfg, qm.with_backend("ref"), **kw)
+        ref_reqs = [Request(prompt=p, max_new=32) for p in prompts]
+        ref_eng.generate(ref_reqs)
+        agree = sum(int(a == b) for r, s in zip(reqs, ref_reqs)
+                    for a, b in zip(r.out.tolist(), s.out.tolist()))
+        log(f"phase 10 {tag}: wave greedy tokens fused == ref: {agree}/"
+            f"{sum(len(r.out) for r in reqs)}")
+        decode_step_split(
+            torch, api, params, cfg, fused, kvq, dev, seed, length=S,
+            max_len=eng.max_len,
+            label=f"phase 10 {tag} decode step, wave shape (4 lanes at fill "
+                  f"{S}+, kv_cache {kv_cache}, fused")
+        del eng, ref_eng
+        torch.cuda.empty_cache()
+    return launches, waves["_long"]
+
+
+def griffin_ring_gate(torch, dev, params, cfg, qm, prompts, card):
+    """Wave (ii)'s first decode step, past the ring's wrap (3072 prompt
+    positions in a 2048-slot ring; the step writes slot 1024). (1) The
+    fused logits on the mxfp8 ring against the same step on a copy of the
+    ring under the reference backend: the ring decoded to dense, the plain
+    attention over it and the plain GEMMs. (2) Lane 0 on a dense ring
+    (``kv_cache='none'``), reference backend, against the forward of its
+    3073 tokens at the last position: the ring's key positions give the
+    windowed attention of the full sequence. Both within RING_BAR of max
+    |logit| (the MX-tie bar); (2) holds the weights in f32 without
+    activation quantization, and logs the quantized comparison beside
+    it."""
+    from repro_torch.core.quantize import KVCacheQuant, QuantMode
+    from repro_torch.kernels.packing import PackedKV
+    from repro_torch.models import api
+    S = 3072
+    toks = _wave_tokens(torch, dev, prompts, S)
+    fused, ref = qm.with_backend("fused"), qm.with_backend("ref")
+
+    def copy(v):
+        return (PackedKV(v.codes.clone(), v.scales.clone(), v.fmt, v.dtype)
+                if isinstance(v, PackedKV) else v.clone())
+
+    def agree(label, got, want, hold=True):
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"phase 10 griffin ring {label}: max|diff| {err:.4e} of "
+            f"max|logit| {top:.4e} ({err / top:.3e}; bar {RING_BAR}); argmax "
+            f"agreement {same:.3f} on {card}")
+        if hold and not err <= RING_BAR * top:
+            raise AssertionError(f"phase 10: Griffin's post-wrap decode, "
+                                 f"{label}")
+
+    with torch.no_grad():
+        lg, cache = api.prefill(params, cfg, toks, fused, max_len=4096,
+                                kv_quant=KVCacheQuant("mxfp8"))
+        nxt = lg.argmax(-1).to(torch.int32)
+        twin = {k: copy(v) for k, v in cache.items()}
+        lf, _ = api.decode(params, cfg, cache, nxt, S, fused)
+        lr, _ = api.decode(params, cfg, twin, nxt, S, ref)
+        A = cache["attn_k"].shape[2]
+        agree(f"(1) decode at position {S} into slot {S % A} of {A} (the "
+              f"prefill wrapped the ring {S // A}x), fused on the mxfp8 ring "
+              f"against the plain attention over it decoded", lf, lr)
+        ext = torch.cat([toks[:1], nxt[:1, None].to(toks.dtype)], dim=1)
+        for q in (QuantMode.off(), ref):
+            _, dense = api.prefill(params, cfg, toks[:1], q, max_len=4096)
+            ld, _ = api.decode(params, cfg, dense, nxt[:1], S, q)
+            full = api.forward(params, cfg, ext, q)[:, -1]
+            agree(f"(2) lane 0 on a dense ring against the forward of its "
+                  f"{S + 1} tokens, "
+                  + ("f32 (activations unquantized)" if not q.enabled else
+                     f"MX activations (logged: a code flipped at a tie "
+                     f"compounds through {cfg.n_layers} layers)"), ld, full,
+                  hold=not q.enabled)
+
+
+def ssd_chunk_cost(torch, dev, params, cfg, qm, card):
+    """The cost of an unbucketed Mamba2 prefill: 4 x 1324 tokens (the chunk
+    rule takes q = 4: 331 chunks a layer) against 4 x 2048 (q = 256: 8),
+    wall time each, synchronised."""
+    from repro_torch.models import api, ssd
+    out = {}
+    for S in (1324, 2048):
+        toks = torch.randint(0, cfg.vocab_size, (4, S), device=dev)
+        with torch.no_grad():
+            api.prefill(params, cfg, toks, qm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.prefill(params, cfg, toks, qm)
+            torch.cuda.synchronize()
+        out[S] = (time.perf_counter() - t0) * 1e3
+        log(f"phase 10 mamba2 prefill 4 x {S} (chunk "
+            f"{ssd.chunk_len(S, cfg.ssm_chunk)}, "
+            f"{S // ssd.chunk_len(S, cfg.ssm_chunk)} chunks a layer): "
+            f"{out[S]:.1f} ms wall on {card}")
+    return out
+
+
+def rec_train(torch, dev, seed, card, root):
+    """(c) Mamba2-130M at its full config (10 steps) and RecurrentGemma-2B's
+    widths at 5 layers (5 steps) under the port's Trainer: batch 8 x 512,
+    bf16 parameters, remat; step times, peak memory and losses."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    B, S = TRAIN_SHAPE
+    for name, (layers, steps) in REC_TRAIN.items():
+        cfg = configs.get(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, TrainConfig(
+            steps=steps, batch_size=B, seq_len=S, ckpt_every=10 ** 9,
+            ckpt_dir=str(root / name), keep=1, log_every=1, seed=seed,
+            opt=opt.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)),
+            device=dev, log=lambda *_: None)
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [m["loss"] for m in tr.metrics]
+        st = tr.step_times
+        log(f"phase 10 (c) train {name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, bf16 parameters, remat) batch {B} x seq {S}: "
+            f"{steps} steps in {wall:.1f} s; step time first {st[0]:.3f} s, "
+            f"median {sorted(st)[len(st) // 2]:.3f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; losses "
+            f"{[round(x, 6) for x in losses]} on {card}")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 10 (c) {name}: losses {losses}")
+        del tr
+        torch.cuda.empty_cache()
+
+
+def rec_latmix(torch, dev, seed, card):
+    """(d) ``apply_method('latmix-lu', steps=10)`` on RecurrentGemma-2B's
+    widths at REC_PTQ_LAYERS layers (random weights, the artifact CLI's
+    calibration; RTN weights, T2 on the super-blocks' attention layers);
+    then the first loss of ``learn_transforms`` on the card against the
+    CPU's at REC_CPU_LAYERS layers on the same weights, within
+    TRAJ_BARS[0] relative (phase 7's bar)."""
+    import dataclasses
+
+    from repro_torch import configs, devices
+    from repro_torch.core import latmix, ptq
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+
+    full = configs.get("recurrentgemma-2b")
+    cfg = dataclasses.replace(full, n_layers=REC_PTQ_LAYERS)
+    nb, B, S = PTQ_CALIB
+    src = synthetic.make_source(cfg, B, S, seed)
+    calib = [src.batch(i) for i in range(nb)]
+    params = api.init(torch.Generator(device=dev).manual_seed(seed + 102),
+                      cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ptq.apply_method("latmix-lu", params, cfg, calib, fmt="mxfp4",
+                           steps=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"phase 10 (d) latmix-lu recurrentgemma-2b ({cfg.n_layers} of "
+        f"{full.n_layers} layers, published widths), 10 steps on {nb} x {B} "
+        f"x {S} calibration: {wall:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; history "
+        + json.dumps(res.history) + f"; T2 {tuple(res.tset.a2.shape)} on "
+        f"{card}")
+    if res.tset.a2.shape[0] != cfg.n_super_blocks or not all(
+            np.isfinite(h["loss"]) for h in res.history):
+        raise AssertionError("phase 10 (d): latmix-lu went wrong")
+    del res, params
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(full, n_layers=REC_CPU_LAYERS)
+    host = api.init(torch.Generator().manual_seed(seed + 103), small,
+                    device="cpu")
+    batch = {k: v[:1] for k, v in calib[0].items()}
+    lx = latmix.LatmixConfig(kind="lu", steps=1)
+    firsts = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        _, _, hist = latmix.learn_transforms(
+            api.fold_norms(devices.tree_to(host, where), small), small, lx,
+            [batch])
+        firsts.append((hist[0]["loss"], time.perf_counter() - t0))
+    (lc, tc), (lh, th) = firsts
+    rel = abs(lc - lh) / abs(lh)
+    log(f"phase 10 (d) first latmix-lu loss at {REC_CPU_LAYERS} layers: card "
+        f"{lc:.6f} ({tc:.1f} s, {card}), CPU {lh:.6f} ({th:.1f} s); "
+        f"relative {rel:.3e} (bar {TRAJ_BARS[0]})")
+    if not rel <= TRAJ_BARS[0]:
+        raise AssertionError("phase 10 (d): the card's first loss parts "
+                             "from the CPU's")
+
+
+def recurrent_phase(torch, dev, seed, card):
+    """Phase 10 (a)-(d): RecurrentGemma-2B and Mamba2-130M at their full
+    configs served on the wave scheduler, trained, and LATMiX on Griffin's
+    widths. Returns {path: launches}."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    log(f"phase 10 on {card}")
+    launches = {}
+    cfg = configs.get("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    res = ptq.apply_method("rtn", api.init(
+        torch.Generator(device=dev).manual_seed(seed + 100), cfg,
+        device=dev), cfg, fmt="mxfp4")
+    params = pack_params(res)
+    qm = dataclasses.replace(res.qm, t3_block=32)
+    nparam = sum(int(np.prod(v.shape)) for v in tree_leaves(res.params))
+    del res
+    torch.cuda.synchronize()
+    log(f"phase 10 (a) recurrentgemma-2b full config ({cfg.n_layers} layers: "
+        f"{cfg.n_super_blocks} super-blocks + {cfg.n_tail_rec} recurrent, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"KV head of {cfg.head_dim}, d_ff {cfg.d_ff}, window {cfg.window}, "
+        f"vocab {cfg.vocab_size}, {nparam / 1e9:.3f} B parameters): init + "
+        f"RTN + pack on the card {time.perf_counter() - t0:.1f} s, no "
+        f"artifact")
+    lw, wrap = rec_serve_cell(torch, dev, seed, card, params, cfg, qm,
+                              "mxfp8", "griffin")
+    launches.update(lw)
+    griffin_ring_gate(torch, dev, params, cfg, qm, wrap, card)
+    del params
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    cfg = configs.get("mamba2-130m")
+    gen = torch.Generator(device=dev).manual_seed(seed + 104)
+    res = ptq.apply_method("rtn", api.init(gen, cfg, device=dev), cfg,
+                           fmt="mxfp4")
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    with tempfile.TemporaryDirectory() as tmp:
+        art = pathlib.Path(tmp) / "mamba2-130m-mxfp4"
+        export_artifact(res, cfg, art)
+        del res
+        params, _, qm = load_artifact(art, device=dev)
+        log(f"phase 10 (b) mamba2-130m full config ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_nheads}"
+            f" heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}, in_proj N = "
+            f"{params['blocks']['in_proj'].shape[-1]}, vocab "
+            f"{cfg.vocab_size}): exported and loaded")
+        lw, _ = rec_serve_cell(torch, dev, seed, card, params, cfg, qm,
+                               "none", "mamba2", art=art)
+    launches.update(lw)
+    ssd_chunk_cost(torch, dev, params, cfg, qm.with_backend("fused"), card)
+    del params
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_train(torch, dev, seed, card, pathlib.Path(tmp))
+    t_c = time.perf_counter() - t_phase
+    rec_latmix(torch, dev, seed, card)
+    t_d = time.perf_counter() - t_phase
+    log(f"phase 10: {t_d:.1f} s wall on {card} (cumulative: (a) {t_a:.1f}, "
+        f"(b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3056,13 +3479,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_script = time.perf_counter()
     card = card_facts(torch, build)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def clock(what):
+        log(f"{what} done at {time.perf_counter() - t_script:.1f} s of the "
+            f"script on {card}")
     gemm_entries = check_gemm(torch, dev, gen)
     verify_gemm_times(torch, dev, args.seed)
     t0 = time.perf_counter()
     zoo_entries = zoo_kernel_entries(torch, dev, args.seed)
     log(f"phase 9 kernel rows: {time.perf_counter() - t0:.1f} s wall on "
+        f"{card}")
+    t0 = time.perf_counter()
+    rec_entries = rec_kernel_entries(torch, dev, args.seed)
+    log(f"phase 10 kernel rows: {time.perf_counter() - t0:.1f} s wall on "
         f"{card}")
     entries = [*gemm_entries,
                *check_prefill(torch, dev, gen, args.seed),
@@ -3070,11 +3502,15 @@ def main(argv=None) -> int:
                                                                  gen),
                *check_quantizers(torch, dev, gen),
                check_unpacked_gemm(torch, dev, gen)]
+    clock("phase 2")
     launches, served = end_to_end(torch, dev, args.seed)
+    clock("phase 3")
     launches["standalone"] = standalone_path(torch, dev, served["params"])
+    clock("phase 4")
     sampled = sampling_and_spec(torch, dev, args.seed, card, **served)
     launches["server"] = http_server_phase(torch, dev, args.seed, card,
                                            served, sampled)
+    clock("phase 6")
     t0 = time.perf_counter()
     spec_resume_gate(torch, dev, args.seed, card, served)
     log(f"phase 9 (f): {time.perf_counter() - t0:.1f} s wall on {card}")
@@ -3085,6 +3521,9 @@ def main(argv=None) -> int:
     entries += moe_entries
     launches.update(zoo_phase(torch, dev, args.seed, card))
     entries += zoo_entries
+    launches.update(recurrent_phase(torch, dev, args.seed, card))
+    entries += rec_entries
+    clock("phase 10")
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

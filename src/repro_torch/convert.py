@@ -5,8 +5,11 @@ The JAX package keeps parameters as nested dicts of arrays with
 layer-stacked leaves, and packed weights as ``PackedWeight`` nodes; the port
 keeps the same tree with torch tensors and its own ``PackedWeight``. Both
 packages then compute on the same weights, byte for byte. This covers every
-transformer family: a vlm's or encoder's tree has no ``embed`` and, after
-the PTQ fold, an ``input_transform`` ({"a", "v"}) subtree. bfloat16 leaves
+family: a vlm's or encoder's tree has no ``embed`` and, after the PTQ fold,
+an ``input_transform`` ({"a", "v"}) subtree; Griffin's holds ``super/{r1,
+r2, at}`` stacked over the super-blocks and ``tail``, Mamba2's ``blocks``,
+and a hybrid ``TransformSet`` stacks ``a2`` over the super-blocks'
+attention layers. bfloat16 leaves
 (numpy arrays of ``ml_dtypes.bfloat16``, as JAX hands them out) keep their
 bits. A checkpoint on disk needs no conversion: ``training.checkpoint``
 reads the JAX package's format.

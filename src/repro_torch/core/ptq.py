@@ -1,5 +1,5 @@
 """End-to-end PTQ pipeline of the port — every method of
-``repro.core.ptq``, for every transformer family, under one interface:
+``repro.core.ptq``, for every family, under one interface:
 
     result = apply_method(method, params, cfg, calib, fmt)
 
@@ -21,8 +21,9 @@ Methods (Table 1 / Table 2 / Table 6 rows):
 Every transform-based method runs the same pipeline (fold norms -> learn
 or fix Ω -> fold -> weight quant), on the device of ``params``. The JAX
 package's gates hold: GPTQ for the dense family only (the others take RTN
-weights), T2 wherever ``latmix.t2_applicable``; a stub-frontend family's T1
-stays as ``input_transform``."""
+weights), T2 wherever ``latmix.t2_applicable`` (not ``ssm``; ``hybrid``
+only on its attention layers); a stub-frontend family's T1 stays as
+``input_transform``."""
 from __future__ import annotations
 
 import dataclasses

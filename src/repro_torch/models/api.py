@@ -1,10 +1,13 @@
 """Model API of the port, dispatching on ``cfg.family``: serving, the PTQ
 folds and the losses.
 
-The transformer families are ported: ``dense``, ``encoder`` (causal off, no
+Every family of the JAX package: ``dense``, ``encoder`` (causal off, no
 decode path), ``vlm`` (no token embedding: a stub front end gives (B, S, d)
-embeddings) and ``moe``. The recurrent families of the JAX package
-(hybrid, ssm) come with a later slice and raise here."""
+embeddings), ``moe``, ``hybrid`` (Griffin: RG-LRU and local attention
+over a ring buffer) and ``ssm`` (Mamba2 SSD). The recurrent families have
+no chunked-prefill, paged or verify step; those entry points raise for
+them with the JAX package's messages, as ``prefill`` / ``init_cache`` with
+``kv_quant`` do for ``ssm``."""
 from __future__ import annotations
 
 import torch
@@ -12,18 +15,31 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import QuantMode
 
-from . import moe, transformer
+from . import griffin, moe, ssd, transformer
 
 _FAMILY = {"dense": transformer, "encoder": transformer,
-           "vlm": transformer, "moe": moe}
+           "vlm": transformer, "moe": moe, "hybrid": griffin, "ssm": ssd}
+
+_SSM_KV = ("ssm family has no attention KV cache to quantize; serve it "
+           "with kv_cache='none'")
+_NO_PAGED = ("family {!r} has no paged-cache step (recurrent ring-buffer "
+             "state cannot be paged); serve it with kv_layout='contiguous'")
+_NO_VERIFY = ("family {!r} has no multi-token verify step (recurrent state "
+              "cannot rewind rejected drafts); serve it without speculative "
+              "decoding")
 
 
 def module_for(cfg: ArchConfig):
-    mod = _FAMILY.get(cfg.family)
-    if mod is None:
-        raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         f"(ported: {sorted(_FAMILY)})")
-    return mod
+    return _FAMILY[cfg.family]
+
+
+def _step(cfg: ArchConfig, name: str, message: str):
+    """The family module's ``name``, or ValueError(message) where the
+    family has none."""
+    fn = getattr(module_for(cfg), name, None)
+    if fn is None:
+        raise ValueError(message.format(cfg.family))
+    return fn
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
@@ -43,14 +59,18 @@ def prefill(params, cfg: ArchConfig, inputs,
     the cache MX-packed."""
     if cfg.family == "encoder":
         raise ValueError("encoder-only arch has no decode/prefill step")
+    if kv_quant is not None and cfg.family == "ssm":
+        raise ValueError(_SSM_KV)
     return module_for(cfg).prefill(params, cfg, inputs, qm, max_len=max_len,
                                    kv_quant=kv_quant)
 
 
 def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
                   last_idx: int, qm: QuantMode = QuantMode.off()):
-    return module_for(cfg).prefill_chunk(params, cfg, cache, inputs, start,
-                                         last_idx, qm)
+    return _step(cfg, "prefill_chunk",
+                 "family {!r} has no chunked-prefill step (recurrent state "
+                 "caches); serve it with the wave scheduler")(
+        params, cfg, cache, inputs, start, last_idx, qm)
 
 
 def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
@@ -64,6 +84,8 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.float32, kv_quant=None, device=None):
+    if kv_quant is not None and cfg.family == "ssm":
+        raise ValueError(_SSM_KV)
     return module_for(cfg).init_cache(cfg, batch, max_len, dtype,
                                       kv_quant=kv_quant, device=device)
 
@@ -71,36 +93,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def prefill_chunk_paged(params, cfg: ArchConfig, cache, block_tables,
                         inputs, start, last_idx,
                         qm: QuantMode = QuantMode.off()):
-    return module_for(cfg).prefill_chunk_paged(params, cfg, cache,
-                                               block_tables, inputs, start,
-                                               last_idx, qm)
+    return _step(cfg, "prefill_chunk_paged", _NO_PAGED)(
+        params, cfg, cache, block_tables, inputs, start, last_idx, qm)
 
 
 def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
                  block_tables, qm: QuantMode = QuantMode.off()):
-    return module_for(cfg).decode_paged(params, cfg, cache, inputs, cur_len,
-                                        block_tables, qm)
+    return _step(cfg, "decode_paged", _NO_PAGED)(
+        params, cfg, cache, inputs, cur_len, block_tables, qm)
 
 
 def init_cache_paged(cfg: ArchConfig, n_pages: int, page_size: int,
                      dtype=torch.float32, kv_quant=None, device=None):
-    return module_for(cfg).init_cache_paged(cfg, n_pages, page_size, dtype,
-                                            kv_quant=kv_quant, device=device)
+    return _step(cfg, "init_cache_paged",
+                 "family {!r} has no paged-cache layout (recurrent "
+                 "ring-buffer state cannot be paged); serve it with "
+                 "kv_layout='contiguous'")(
+        cfg, n_pages, page_size, dtype, kv_quant=kv_quant, device=device)
 
 
 def verify(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
            qm: QuantMode = QuantMode.off()):
     """Multi-token speculative verify step over the contiguous cache:
     per-slot next-token logits (B, C, V)."""
-    return module_for(cfg).verify(params, cfg, cache, inputs, pos, n_valid,
-                                  qm)
+    return _step(cfg, "verify", _NO_VERIFY)(params, cfg, cache, inputs, pos,
+                                            n_valid, qm)
 
 
 def verify_paged(params, cfg: ArchConfig, cache, inputs, pos, n_valid,
                  block_tables, qm: QuantMode = QuantMode.off()):
     """Multi-token speculative verify step over a paged pool."""
-    return module_for(cfg).verify_paged(params, cfg, cache, inputs, pos,
-                                        n_valid, block_tables, qm)
+    return _step(cfg, "verify_paged", _NO_VERIFY)(
+        params, cfg, cache, inputs, pos, n_valid, block_tables, qm)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +190,6 @@ def lm_loss(params, cfg: ArchConfig, batch: dict,
     S) tokens or (B, S, d) embeddings, "labels": (B, S)[, "mask": (B,
     S)]}. The MoE family adds its router losses, ``aux_coefs`` times (load
     balance, z-loss)."""
-    module_for(cfg)
     if cfg.family == "moe":
         logits, (lbl, zl) = moe.forward(params, cfg, batch["inputs"], qm,
                                         return_aux=True)

@@ -1,6 +1,9 @@
-"""Shared layers of the dense transformer: RMSNorm, RoPE, GQA attention
-(online softmax over KV chunks), the KV-cache writes of both layouts and
-the gated MLP — the serving part of ``repro.models.layers``.
+"""Shared layers of the model families: RMSNorm (and Mamba2's gated form),
+RoPE, GQA attention (online softmax over KV chunks, optionally over a ring
+buffer's explicit key positions), the differentiable flash attention of
+training and prefill, the KV-cache writes of both layouts, the gated MLP
+and the depthwise causal conv of the recurrent families — the port of
+``repro.models.layers``.
 
 A contiguous cache leaf is a dense (B, S, kv_dim) tensor or a ``PackedKV``
 (MX codes + E8M0 bytes, quantized at append time). Paged-cache writes go
@@ -220,6 +223,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5):
     return (y * gamma.float()).to(x.dtype)
 
 
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+                   eps: float = 1e-5):
+    """Mamba2's gated norm: rmsnorm(x * silu(z)) * gamma."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), gamma, eps)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) in the JAX package's form (``jax.nn.softplus``,
+    ``logaddexp(x, 0)``): no threshold past which x is returned as is."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
 @functools.lru_cache(maxsize=None)
 def _rope_inv_freq(theta: float, half: int) -> np.ndarray:
     """RoPE inverse-frequency table, computed in numpy f32 exactly as the
@@ -251,16 +266,17 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
 # ---------------------------------------------------------------------------
 
 def _attention_packed(q, k: PackedKV, v: PackedKV, *, causal, q_pos,
-                      k_start, window, kv_len, chunk, backend):
+                      k_start, window, kv_len, k_positions, chunk, backend):
     """Attention over a contiguous MX-packed cache. Under
     ``backend='fused'`` the single-token decode contract (Sq == 1, causal,
     keys from position 0, a known fill) runs ``ops.mx_flash_decode``;
-    everything else — chunked prefill, the 'ref' backend — decodes the
-    cache in place and runs the dense :func:`attention` on the same
-    values (the JAX package has no kernel there either)."""
+    everything else — chunked prefill, ring-buffer caches (``k_positions``),
+    the 'ref' backend — decodes the cache in place and runs the dense
+    :func:`attention` on the same values (the JAX package has no kernel
+    there either)."""
     B, Sq, H, Dh = q.shape
-    if (backend == "fused" and Sq == 1 and causal and k_start == 0
-            and kv_len is not None):
+    if (backend == "fused" and Sq == 1 and causal and k_positions is None
+            and k_start == 0 and kv_len is not None):
         qp = torch.as_tensor(q_pos)
         qpv = qp[:, 0] if qp.ndim == 2 else qp.reshape(-1)
         out = ops.mx_flash_decode(
@@ -272,23 +288,26 @@ def _attention_packed(q, k: PackedKV, v: PackedKV, *, causal, q_pos,
     vd = kv_heads_view(v.to_dense(), kvh, Dh)
     return attention(q, kd, vd, causal=causal, q_pos=q_pos,
                      k_start=k_start, window=window, kv_len=kv_len,
-                     chunk=chunk)
+                     k_positions=k_positions, chunk=chunk)
 
 
 def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
               k_start: int = 0, window: int = 0, kv_len=None,
-              chunk: int = 1024, backend: str = "ref") -> torch.Tensor:
+              k_positions=None, chunk: int = 1024,
+              backend: str = "ref") -> torch.Tensor:
     """Memory-bounded attention. q (B, Sq, H, Dh); k, v (B, Sk, K, Dh)
     with H % K == 0 — or ``PackedKV`` leaves of logical shape (B, Sk,
     K*Dh), dispatched by :func:`_attention_packed`; q_pos (Sq,) shared or
     (B, Sq) per-row absolute positions; k_start the position of k[:, 0];
     window > 0 masks keys at pos <= q_pos - window; kv_len masks key
-    indices >= kv_len (a scalar or a (B,) vector). Output (B, Sq, H,
-    Dh)."""
+    indices >= kv_len (a scalar or a (B,) vector); k_positions (Sk,)
+    gives each key slot its position instead (a ring buffer), entries < 0
+    invalid. Output (B, Sq, H, Dh)."""
     if isinstance(k, PackedKV):
         return _attention_packed(q, k, v, causal=causal, q_pos=q_pos,
                                  k_start=k_start, window=window,
-                                 kv_len=kv_len, chunk=chunk, backend=backend)
+                                 kv_len=kv_len, k_positions=k_positions,
+                                 chunk=chunk, backend=backend)
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -300,6 +319,8 @@ def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
     qp = qp[None, :] if qp.ndim == 1 else qp                # (1|B, Sq)
     kl = (None if kv_len is None else
           torch.as_tensor(kv_len, device=q.device).long().reshape(-1, 1, 1))
+    kpos = (None if k_positions is None else
+            torch.as_tensor(k_positions, device=q.device).long())
 
     m = torch.full((B, Sq, K, G), NEG_INF, device=q.device)
     l = torch.zeros((B, Sq, K, G), device=q.device)
@@ -307,7 +328,8 @@ def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
     for i in range(Sk // chunk):
         kci = k[:, i * chunk:(i + 1) * chunk]
         vci = v[:, i * chunk:(i + 1) * chunk]
-        kp = k_start + i * chunk + torch.arange(chunk, device=q.device)
+        kp = (k_start + i * chunk + torch.arange(chunk, device=q.device)
+              if kpos is None else kpos[i * chunk:(i + 1) * chunk])
         kpb = kp[None, None, :]
         ok = kpb >= 0
         if causal:
@@ -332,18 +354,139 @@ def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
 
 
 # ---------------------------------------------------------------------------
+# Flash-style differentiable attention: the backward recomputes the scores
+# chunk by chunk from (q, k, v, out, lse), so training keeps O(S·d) and not
+# the per-chunk score residuals autograd would save.
+# ---------------------------------------------------------------------------
+
+def _fa_mask(q_pos, k_pos, causal: bool, window: int):
+    ok = k_pos[None, :] >= 0
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    return ok[None, :, None, None, :]                  # (1, Sq, 1, 1, c)
+
+
+def _fa_forward(qg, k, v, causal, window, chunk, scale):
+    """qg (B, Sq, K, G, Dh); k, v (B, Sk, K, Dh), keys at 0..Sk-1 and
+    queries at 0..Sq-1. Returns (out (B, Sq, K, G, Dh) f32, lse (B, Sq, K,
+    G)). Unlike :func:`attention`, p stays f32 in the value product."""
+    B, Sq, K, G, Dh = qg.shape
+    dev = qg.device
+    q_pos = torch.arange(Sq, device=dev)
+    qf = qg.float()
+    m = torch.full((B, Sq, K, G), NEG_INF, device=dev)
+    l = torch.zeros((B, Sq, K, G), device=dev)
+    acc = torch.zeros((B, Sq, K, G, Dh), device=dev)
+    for i in range(k.shape[1] // chunk):
+        kp = i * chunk + torch.arange(chunk, device=dev)
+        ok = _fa_mask(q_pos, kp, causal, window)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qf,
+                         k[:, i * chunk:(i + 1) * chunk].float()) * scale
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p, v[:, i * chunk:(i + 1) * chunk].float())
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    return acc / lc[..., None], m + torch.log(lc)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``flash_attention`` custom VJP: the forward saves
+    (q, k, v, out, lse); the backward walks the KV chunks again."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, causal, window, chunk, scale):
+        out, lse = _fa_forward(qg, k, v, causal, window, chunk, scale)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.args = (causal, window, chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, out, lse = ctx.saved_tensors
+        causal, window, chunk, scale = ctx.args
+        dev = qg.device
+        q_pos = torch.arange(qg.shape[1], device=dev)
+        qf, do = qg.float(), dout.float()
+        delta = (do * out).sum(dim=-1)                  # (B, Sq, K, G)
+        dq = torch.zeros(qg.shape, device=dev)
+        dks, dvs = [], []
+        for i in range(k.shape[1] // chunk):
+            kci = k[:, i * chunk:(i + 1) * chunk].float()
+            vci = v[:, i * chunk:(i + 1) * chunk].float()
+            kp = i * chunk + torch.arange(chunk, device=dev)
+            ok = _fa_mask(q_pos, kp, causal, window)
+            s = torch.einsum("bqkgd,bckd->bqkgc", qf, kci) * scale
+            p = torch.where(ok, torch.exp(s - lse[..., None]),
+                            torch.zeros_like(s))
+            dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p, do))
+            dp = torch.einsum("bqkgd,bckd->bqkgc", do, vci)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds, kci)
+            dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, qf))
+        return (dq.to(qg.dtype), torch.cat(dks, dim=1).to(k.dtype),
+                torch.cat(dvs, dim=1).to(v.dtype), None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, chunk: int) -> torch.Tensor:
+    """Differentiable memory-efficient attention for full-sequence training
+    and prefill: q (B, Sq, H, Dh) at positions 0..Sq-1, k, v (B, Sk, K, Dh)
+    contiguous from position 0. Output (B, Sq, H, Dh) in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if Sk % chunk != 0 or Sk <= chunk:
+        chunk = Sk
+    out = _FlashAttention.apply(q.reshape(B, Sq, K, H // K, Dh), k, v,
+                                causal, window, chunk, sm_scale(Dh))
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Gated MLP
 # ---------------------------------------------------------------------------
 
 def gated_mlp(x: torch.Tensor, wg, wu, wd, qm: QuantMode, act: str = "silu",
               bg=None, bu=None, bd=None) -> torch.Tensor:
-    """SwiGLU / GeGLU: down(act(x @ wg) * (x @ wu)). Under the fused
-    backend the down projection's online T3 runs in the GEMM prologue."""
+    """SwiGLU / GeGLU: down(act(x @ wg) * (x @ wu)); GeGLU's GELU is the
+    tanh form (``jax.nn.gelu``'s default). Under the fused backend the down
+    projection's online T3 runs in the GEMM prologue."""
     g = qlinear(x, wg, bg, qm, "ffn_in")
     u = qlinear(x, wu, bu, qm, "ffn_in")
-    fn = F.silu if act == "silu" else F.gelu
-    h = fn(g.float()).to(x.dtype) * u
+    h = (F.silu(g.float()) if act == "silu"
+         else F.gelu(g.float(), approximate="tanh")).to(x.dtype) * u
     return qlinear(h, wd, bd, qm, "ffn_down")
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv (the Griffin and Mamba2 temporal conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    """x (B, L, C); w (C, K) depthwise; left-padded by K - 1 (causal)."""
+    K, L = w.shape[-1], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    views = torch.stack([xp[:, i:i + L] for i in range(K)], dim=-1)
+    y = torch.einsum("blck,ck->blc", views, w.to(x.dtype))
+    return y if b is None else y + b.to(x.dtype)
+
+
+def conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+                b):
+    """One decode step. conv_state (B, C, K-1) the previous inputs, x_t
+    (B, C). Returns (y_t (B, C), the new state)."""
+    full = torch.cat([conv_state, x_t[:, :, None]], dim=-1)      # (B, C, K)
+    y = torch.einsum("bck,ck->bc", full, w.to(x_t.dtype))
+    if b is not None:
+        y = y + b.to(x_t.dtype)
+    return y, full[:, :, 1:]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,

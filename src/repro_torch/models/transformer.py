@@ -27,7 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.packing import PackedKV, PagedKV
 
 from .layers import (apply_rope, attention, attention_paged, dense_init,
-                     gated_mlp, kv_heads_view, kv_scatter_chunk_paged,
+                     flash_attention, gated_mlp, kv_heads_view, kv_scatter_chunk_paged,
                      kv_write_chunk_paged, kv_write_rows, kv_write_slice,
                      kv_write_spec, kv_write_spec_paged,
                      kv_write_token_paged, rms_norm, spec_slots)
@@ -109,13 +109,15 @@ def _qkv(x, p, cfg: ArchConfig, qm: QuantMode, pos):
 
 def attn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode, pos,
                   window: int = 0):
-    """Full-sequence attention (no cache). Returns (x', k, v)."""
+    """Full-sequence attention (train / prefill, no cache) through
+    :func:`flash_attention`, whose backward recomputes the scores per KV
+    chunk. Returns (x', k, v)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg, qm, pos)
-    out = attention(q, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-                    v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-                    causal=cfg.causal, q_pos=pos, window=window,
-                    chunk=cfg.attn_chunk)
+    out = flash_attention(q, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                          v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                          causal=cfg.causal, window=window,
+                          chunk=cfg.attn_chunk)
     out = qlinear(out.reshape(B, S, cfg.q_dim), p["wo"], p.get("bo"), qm,
                   "attn_out")
     return x + out, k, v

@@ -15,7 +15,11 @@ on; admission chain-hashes each prompt's full pages and reuses cached
 prefix pages by reference, copies a shared page before a rewrite lands in
 it, and prefills up to ``policy.max_prefill_lanes_per_step`` requests
 together). Decode runs in bursts of back-to-back steps with one host
-sync per burst, with a per-lane finite-logit guard.
+sync per burst, with a per-lane finite-logit guard. The recurrent
+families (``hybrid``: Griffin's ring-buffer attention and RG-LRU state;
+``ssm``: Mamba2's state) are served by the wave scheduler on the
+contiguous cache only: their state neither pages, admits in chunks nor
+rewinds, and ``ssm`` has no KV cache to quantize.
 
 Tokens are greedy (argmax) unless a request carries ``Request.sampling``
 (``serving.sampling``): temperature / top-k / top-p with a replayable seed,
@@ -403,15 +407,13 @@ class Engine:
                 "each request's own emitted tokens")
         if cfg.family == "vlm":
             raise ValueError(VLM_REFUSAL)
-        if cfg.family not in ("dense", "moe") or not cfg.embed_inputs:
-            raise ValueError(
-                f"family {cfg.family!r} is not ported yet: the port serves "
-                f"dense and moe; the recurrent families come with a later "
-                f"slice")
         self.policy = policy if policy is not None else SchedulingPolicy()
         self.spec = spec
         self._faults = faults
         self.kv_quant = KVCacheQuant.parse(kv_cache)
+        if self.kv_quant is not None and cfg.family == "ssm":
+            raise ValueError("kv_cache quantization requires an attention "
+                             "KV cache; ssm serves with kv_cache='none'")
         if self.kv_quant is not None and cfg.kv_dim % 32 != 0:
             raise ValueError(
                 f"kv_cache quantization needs kv_dim % 32 == 0 (one E8M0 "

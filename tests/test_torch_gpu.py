@@ -736,3 +736,98 @@ def test_trainer_resume_is_exact_on_the_card(cuda_device, tmp_path):
     assert [m["loss"] for m in b2.metrics] == [la[s] for s in range(5, 9)]
     for x, y in zip(opt.tree_leaves(a.params), opt.tree_leaves(b2.params)):
         assert torch.equal(x, y)
+
+
+# The recurrent families. Mamba2-130M's in_proj, (768, 3352): N is no
+# multiple of 16, so the small-M kernel (M = 4, a decode step of 4 lanes)
+# and the tile (M = 300) stage the weight byte by byte.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", (4, 300))
+def test_cuda_gemm_mamba2_in_proj(cuda_device, M):
+    x, pw = _gemm_operands(cuda_device, M, 768, 3352, "mxfp4", 21)
+    y = tops.mx_gemm_packed(x, pw.codes_packed, pw.scales_e8m0)
+    yp = tref.mx_matmul_packed_ref(x, pw.codes_packed, pw.scales_e8m0)
+    assert y.shape == (M, 3352)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert torch.equal(y, tops.mx_gemm_packed(x, pw.codes_packed,
+                                              pw.scales_e8m0))
+
+
+def _recurrent_model(name, **cut):
+    """RTN mxfp4 (T3 on) of a seeded init at the config's widths, cut as
+    asked: (packed params on the CPU, cfg, fused quant mode)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+    from repro_torch.models import api
+    cfg = dataclasses.replace(configs.get(name), dtype="float32", **cut)
+    res = ptq.apply_method("rtn", api.init(
+        torch.Generator().manual_seed(5), cfg, device="cpu"), cfg)
+    qm = dataclasses.replace(res.qm, t3_block=32, backend="fused")
+    return pack_params(res), cfg, qm
+
+
+def _to(tree, dev):
+    from repro_torch import devices
+    return devices.tree_to(tree, dev)
+
+
+def _close(got, want):
+    """The MX-tie bar: an f32 sum an ulp to the other side of a snap moves
+    one code of an activation block."""
+    want = want.float()
+    assert (got.float().cpu() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_cuda_griffin_decode_past_the_ring_wrap(cuda_device):
+    """RecurrentGemma-2B's widths at one super-block (no tail): prefill 40
+    tokens into a 32-slot mxfp8 ring (window cut to 32), then a decode step
+    that writes past the wrap; the card's logits (GEMMs through the kernel)
+    against the CPU's plain versions."""
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.models import griffin
+    params, cfg, qm = _recurrent_model("recurrentgemma-2b", n_layers=3,
+                                       window=32, vocab_size=4096)
+    toks = torch.randint(0, cfg.vocab_size, (4, 41),
+                         generator=torch.Generator().manual_seed(6))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        p = _to(params, dev)
+        with torch.no_grad():
+            _, cache = griffin.prefill(p, cfg, toks[:, :40].to(dev), qm,
+                                       max_len=64,
+                                       kv_quant=KVCacheQuant("mxfp8"))
+            assert cache["attn_k"].shape == (1, 4, 32, cfg.kv_dim)
+            tops.reset_launches()
+            out.append(griffin.decode(p, cfg, cache, toks[:, 40].to(dev), 40,
+                                      qm)[0])
+        if dev.type == "cuda":
+            assert tops.launches["mx_gemm_packed"] == 19
+    _close(out[1], out[0])
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_block_decode(cuda_device):
+    """One Mamba2-130M block at its widths (in_proj 768 -> 3352 through the
+    byte-staged route, out_proj 1536 -> 768) decoding one token from a
+    nonzero state, card against the CPU's plain versions."""
+    from repro_torch.models import ssd
+    params, cfg, qm = _recurrent_model("mamba2-130m", n_layers=1,
+                                       vocab_size=4096)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 1, cfg.d_model, generator=g)
+    st = torch.randn(4, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                     generator=g) * 0.1
+    conv = torch.randn(4, cfg.conv_dim, cfg.conv_kernel - 1, generator=g)
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        p = {k: v[0] for k, v in _to(params, dev)["blocks"].items()}
+        with torch.no_grad():
+            out.append(ssd.block_decode(x.to(dev), p, cfg, qm, st.to(dev),
+                                        conv.to(dev)))
+    for a, b in zip(out[1], out[0]):
+        _close(a, b)

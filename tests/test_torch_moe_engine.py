@@ -209,17 +209,22 @@ def test_cli_exports_a_moe_artifact(tmp_path):
         cfg.n_layers, cfg.n_experts)
 
 
-@pytest.mark.parametrize("family,slice_", (("ssm", "recurrent families"),
-                                           ("hybrid", "recurrent families"),
-                                           ("vlm", "token prompts")))
-def test_engine_refuses_unported_families(family, slice_):
-    """The JAX engine's gates, then the port's own: a family it does not
-    serve raises, naming the slice that brings it (the recurrent ones) or
-    why (a vlm takes embeddings, and every scheduler feeds token
+@pytest.mark.parametrize("family,kw,match", (
+    pytest.param("ssm", {"scheduler": "continuous"},
+                 "recurrent-state families must use scheduler='wave'",
+                 id="ssm-recurrent families"),
+    pytest.param("hybrid", {"scheduler": "continuous"},
+                 "recurrent-state families must use scheduler='wave'",
+                 id="hybrid-recurrent families"),
+    pytest.param("vlm", {}, "token prompts", id="vlm-token prompts")))
+def test_engine_refuses_unported_families(family, kw, match):
+    """The JAX engine's gates, then the port's own: the recurrent families
+    are served by the wave scheduler only (the continuous one raises), and
+    a vlm not at all (it takes embeddings, and every scheduler feeds token
     prompts)."""
     cfg = dataclasses.replace(tconfigs.get_reduced(QWEN), family=family)
-    with pytest.raises(ValueError, match=slice_):
-        TEngine({}, cfg, tptq.QuantMode.off(), device="cpu")
+    with pytest.raises(ValueError, match=match):
+        TEngine({}, cfg, tptq.QuantMode.off(), device="cpu", **kw)
     with pytest.raises(ValueError, match="recurrent"):
         TEngine({}, cfg, tptq.QuantMode.off(), device="cpu",
                 scheduler="continuous", kv_layout="paged")
