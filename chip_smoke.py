@@ -113,7 +113,20 @@ Phases, in order (each raises on failure; nothing is caught):
    RecurrentGemma-2B's widths at 5 layers, and (d) ``latmix-lu`` for 10
    steps at those widths, its first loss on the card against the CPU's.
    The packed GEMM at their shapes is checked and timed beside phase 2
-   (:func:`rec_kernel_entries`).
+   (:func:`rec_kernel_entries`);
+11. the parallel layouts (:func:`parallel_phase`): a one-rank NCCL group
+   started from a ``FileStore`` and a (1, 1) ("data", "model") mesh on
+   the card. (a) Qwen2-0.5B's full config trained PAR_STEPS steps (phase
+   9 (a)'s setup) under ``Trainer(mesh=)`` and meshless from the same
+   seed, losses within PAR_LOSS_BAR relative (and whether bitwise), each
+   run's peak memory; (b) each run's checkpoint restored into the other
+   layout bit for bit; (c) the packed RTN Qwen2-0.5B through
+   ``make_prefill_step`` and PAR_DECODE ``make_serve_step`` steps with
+   and without the mesh: tokens equal, every packed-GEMM and flash-decode
+   launch under the mesh through the replicated route (``ops.on_whole``),
+   as many as without it
+   (``launches_by_path`` ``parallel``); (d) the port's dry run of (a)'s
+   cell on the fake backend, its predicted peak against (a)'s.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3457,6 +3470,246 @@ def recurrent_phase(torch, dev, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel layouts on the card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 10            # (a): Trainer steps with and without the mesh
+PAR_LOSS_BAR = 1e-5       # (a): relative, per step
+PAR_PROMPT = 150          # (c): phase 3's four prompts, cut to the shortest
+PAR_DECODE = 32           # (c): serve steps after the prefill
+PAR_PEAK_BAR = 0.25       # (d): the dry run's peak against the card's
+
+
+def _bitwise(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return all(_bitwise(torch, a[k], b[k]) for k in a)
+    return bool(torch.equal(a, b))
+
+
+def parallel_train(torch, dev, seed, card, root, mesh):
+    """(a) Phase 9 (a)'s setup — Qwen2-0.5B's full config, bf16, remat,
+    TRAIN_SHAPE synthetic batches, AdamW lr 3e-4 — PAR_STEPS steps under
+    the meshless Trainer and under ``Trainer(mesh=)`` from the same seed;
+    (b) the step-PAR_STEPS checkpoint each wrote, restored into the other
+    layout bit for bit. Returns each run's peak bytes."""
+    from repro_torch import configs
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = configs.get("qwen2-0.5b")
+    B, S = TRAIN_SHAPE
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, TrainConfig(
+            steps=PAR_STEPS, batch_size=B, seq_len=S, ckpt_every=PAR_STEPS,
+            ckpt_dir=str(root / name), keep=1, log_every=1, seed=seed,
+            opt=opt.AdamWConfig(lr=3e-4, warmup_steps=5,
+                                total_steps=PAR_STEPS)),
+            device=dev, mesh=m, log=lambda *_: None)
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        st = tr.step_times
+        runs[name] = dict(
+            losses=[r["loss"] for r in tr.metrics],
+            wall=time.perf_counter() - t0,
+            step=sorted(st)[len(st) // 2],
+            peak=torch.cuda.max_memory_allocated(),
+            params=sh.gather(tr.params))
+        del tr
+    p, m = runs["plain"], runs["mesh"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(p["losses"], m["losses"]))
+    bitwise = p["losses"] == m["losses"]
+    log(f"phase 11 (a) train qwen2-0.5b full, {PAR_STEPS} steps of {B} x "
+        f"{S}: meshless {p['wall']:.1f} s (median step {p['step']:.3f} s, "
+        f"peak {p['peak'] / 2**30:.2f} GiB), under the (1, 1) NCCL mesh "
+        f"{m['wall']:.1f} s (median step {m['step']:.3f} s, peak "
+        f"{m['peak'] / 2**30:.2f} GiB); losses {p['losses'][0]:.6f} -> "
+        f"{p['losses'][-1]:.6f}, worst relative difference {rel:.3e}, "
+        f"bitwise equal: {bitwise} on {card}")
+    if len(m["losses"]) != PAR_STEPS or rel > PAR_LOSS_BAR:
+        raise AssertionError(
+            f"phase 11 (a): losses part by {rel:.3e} (bar {PAR_LOSS_BAR}): "
+            + json.dumps({"plain": p["losses"], "mesh": m["losses"]}))
+
+    # (b) each run's step-PAR_STEPS checkpoint into the other layout
+    like = {"params": steps.abstract_params(cfg),
+            "opt": steps.abstract_opt_state(cfg)}
+    psh = sh.params_shardings(like["params"], cfg, "train", mesh)
+    shards = {"params": psh,
+              "opt": sh.opt_state_shardings(like["opt"], psh, mesh)}
+    to_plain, man = ckpt.restore(root / "mesh", like, device=dev)
+    to_mesh, _ = ckpt.restore(root / "plain", like, device=dev,
+                              shardings=shards)
+    placed = all(t.placements == s.placements for t, s in zip(
+        opt.tree_leaves(to_mesh["params"]), opt.tree_leaves(psh)))
+    ok = (man["step"] == PAR_STEPS and placed
+          and _bitwise(torch, to_plain["params"], m["params"])
+          and _bitwise(torch, sh.gather(to_mesh["params"]), p["params"]))
+    log(f"phase 11 (b) the step-{PAR_STEPS} checkpoints: written under the "
+        f"mesh and restored meshless, and the other way round (as "
+        f"DTensors of the train layout), bit for bit: {ok} on {card}")
+    if not ok:
+        raise AssertionError("phase 11 (b): a checkpoint did not cross "
+                             "layouts bit for bit")
+    return {name: r["peak"] for name, r in runs.items()}
+
+
+def parallel_serve(torch, dev, seed, card, mesh):
+    """(c) Qwen2-0.5B's packed RTN mxfp4 tree (T3 before ``ffn_down``,
+    fused backend, mxfp8 KV cache): ``make_prefill_step`` and PAR_DECODE
+    ``make_serve_step`` steps on phase 3's four prompts (cut to
+    PAR_PROMPT tokens) without a mesh and under it; tokens equal, every
+    kernel launch under the mesh through the replicated route
+    (``ops.on_whole``), launch counts equal. Returns the mesh run's
+    launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pcontext as pctx
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    cfg = configs.get("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = ptq.apply_method("rtn", transformer.init(gen, cfg, device=dev),
+                           cfg, fmt="mxfp4")
+    qm = dataclasses.replace(res.qm, t3_block=32, backend="fused")
+    params = pack_params(res)
+    del res
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    inp = torch.as_tensor(np.stack([p[:PAR_PROMPT] for p in prompts]),
+                          device=dev).long()
+    B = inp.shape[0]
+    prefill = steps.make_prefill_step(
+        cfg, qm, max_len=PAR_PROMPT + PAR_DECODE + 1,
+        kv_quant=KVCacheQuant.parse("mxfp8"))
+    serve = steps.make_serve_step(cfg, qm)
+
+    def run(params, inputs, place_cache):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = prefill(params, inputs)
+        cache = place_cache(cache)
+        toks = [tok]
+        for i in range(PAR_DECODE):
+            tok, cache = serve(params, cache, tok, PAR_PROMPT + i)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        toks = [t.full_tensor() if pctx.is_dtensor(t) else t for t in toks]
+        return (torch.stack(toks, 1), time.perf_counter() - t0,
+                dict(ops.launches), dict(ops.quant_paths))
+
+    plain_toks, plain_s, plain_l, _ = run(params, inp, lambda c: c)
+    dp = sh.batch_spec(cfg, B, mesh)
+    with pctx.activate(mesh, batch_axes=mesh_lib.dp_axes(mesh),
+                       model_axis="model"):
+        dparams = sh.distribute(params, sh.params_shardings(
+            params, cfg, "serve", mesh))
+        dinp = sh.distribute_leaf(inp, sh.NamedSharding(mesh,
+                                                        sh.Spec(dp, None)))
+        mesh_toks, mesh_s, mesh_l, paths = run(
+            dparams, dinp, lambda c: sh.distribute(
+                c, sh.cache_shardings(c, cfg, B, mesh)))
+    local = {k[0]: v for k, v in paths.items() if k[1] == "replicated"}
+    kernels = ("mx_gemm_packed", "mx_flash_decode")
+    equal = bool(torch.equal(plain_toks, mesh_toks))
+    log(f"phase 11 (c) serve qwen2-0.5b (packed RTN mxfp4, T3, fused, "
+        f"mxfp8 cache), {B} x {PAR_PROMPT}-token prompts + {PAR_DECODE} "
+        f"steps: meshless {plain_s:.2f} s, under the mesh {mesh_s:.2f} s; "
+        f"tokens equal: {equal}; launches meshless "
+        f"{ {k: plain_l[k] for k in kernels} }, under the mesh "
+        f"{ {k: mesh_l[k] for k in kernels} }, through the replicated route "
+        f"{ {k: local.get(k, 0) for k in kernels} } on {card}")
+    for k in kernels:
+        if not (mesh_l[k] == plain_l[k] == local.get(k, 0) > 0):
+            raise AssertionError(f"phase 11 (c): {k} launched {mesh_l[k]} "
+                                 f"times under the mesh ({local.get(k, 0)}"
+                                 f" replicated), {plain_l[k]} "
+                                 f"without")
+    if not equal:
+        raise AssertionError("phase 11 (c): tokens under the mesh part from "
+                             "the meshless steps")
+    return mesh_l
+
+
+def parallel_dryrun(torch, card, peaks):
+    """(d) The port's dry run of (a)'s own cell (the full config, TRAIN_SHAPE,
+    a (1, 1) mesh on the fake backend): its predicted peak bytes against
+    (a)'s ``torch.cuda.max_memory_allocated``. Analysis, not measurement."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    B, S = TRAIN_SHAPE
+    t0 = time.perf_counter()
+    rec = dryrun.run_counted(configs.get("qwen2-0.5b"),
+                             ShapeConfig("phase11a", S, B, "train"), False,
+                             quant=False, mesh_shape=(1, 1))
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 11 (d): {rec['error']}\n"
+                             f"{rec['traceback']}")
+    mem = rec["memory"]
+    pred, meas = mem["peak_bytes"], peaks["mesh"]
+    rel = pred / meas - 1
+    gib = {k: v / 2**30 for k, v in mem.items()}
+    log(f"phase 11 (d) dry run of (a)'s cell (analysis, "
+        f"{time.perf_counter() - t0:.1f} s on the host): arguments "
+        f"{gib['argument_bytes']:.2f} GiB + temporaries "
+        f"{gib['temp_bytes']:.2f} GiB = peak "
+        f"{pred / 2**30:.2f} GiB predicted; (a) measured {meas / 2**30:.2f} "
+        f"GiB under the mesh, {peaks['plain'] / 2**30:.2f} meshless "
+        f"({rel:+.1%}; beyond {PAR_PEAK_BAR:.0%}: "
+        f"{abs(rel) > PAR_PEAK_BAR}); {rec['flops_per_device']:.4e} FLOPs, "
+        f"{rec['bytes_accessed_per_device']:.4e} bytes a step on {card}")
+    return rec
+
+
+def parallel_phase(torch, dev, seed, card):
+    """Phase 11: a one-rank NCCL group from a FileStore, a (1, 1) ("data",
+    "model") mesh on the card: (a) and (b) :func:`parallel_train`, (c)
+    :func:`parallel_serve`; then, the group closed, (d)
+    :func:`parallel_dryrun`. Returns {"parallel": launches}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    log(f"phase 11 on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        mesh_lib.init_distributed(store=dist.FileStore(str(root / "store"),
+                                                       1),
+                                  world_size=1, rank=0, device="cuda")
+        try:
+            mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            peaks = parallel_train(torch, dev, seed, card, root, mesh)
+            t_ab = time.perf_counter() - t_phase
+            launches = parallel_serve(torch, dev, seed, card, mesh)
+            t_c = time.perf_counter() - t_phase
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    parallel_dryrun(torch, card, peaks)
+    t_d = time.perf_counter() - t_phase
+    log(f"phase 11: {t_d:.1f} s wall on {card} (cumulative: (a, b) "
+        f"{t_ab:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f})")
+    return {"parallel": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3524,6 +3777,8 @@ def main(argv=None) -> int:
     launches.update(recurrent_phase(torch, dev, args.seed, card))
     entries += rec_entries
     clock("phase 10")
+    launches.update(parallel_phase(torch, dev, args.seed, card))
+    clock("phase 11")
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

@@ -80,6 +80,14 @@ class QuantMode:
     def off(t3: int = 0) -> "QuantMode":
         return QuantMode(enabled=False, t3_block=t3)
 
+    @staticmethod
+    def mxfp4(weights: bool = True, t3: bool = True,
+              backend: str = "ref") -> "QuantMode":
+        c = mxlib.MXConfig(fmt="mxfp4", block_size=32)
+        return QuantMode(enabled=True, act_cfg=c,
+                         weight_cfg=c if weights else None,
+                         t3_block=32 if t3 else 0, backend=backend)
+
 
 def _maybe_quant_act(x, qm: QuantMode):
     if qm.enabled and qm.act_cfg is not None:
@@ -161,22 +169,38 @@ def qlinear(x: torch.Tensor, w, b: Optional[torch.Tensor], qm: QuantMode,
     x (..., K); w (K, N) tensor or PackedWeight (or stacked (*lead, K, N)
     with x (*lead, M, K)); b (N,) or None. ``role='ffn_down'`` applies the
     online T3 block-Hadamard to the activation before quantization."""
-    if _mode_fusable(w, qm, role) and _fusable_shapes(x, w):
+    if fused_route(x, w, qm, role):
         ops.record_quant_path("qlinear", "fused", role)
         return _fused_linear(x, w, b, qm, role)
     ops.record_quant_path("qlinear", "ref", role)
-    on_grid = _packed_on_grid(w, qm)
-    w = maybe_dense(w)
+    y = quant_act(x, qm, role) @ quant_weight(w, qm, role)
+    return y if b is None else y + b
+
+
+def fused_route(x, w, qm: QuantMode, role: str = "") -> bool:
+    """Does :func:`qlinear` of these operands run the packed kernel?"""
+    return _mode_fusable(w, qm, role) and _fusable_shapes(x, w)
+
+
+def quant_act(x: torch.Tensor, qm: QuantMode, role: str = ""):
+    """The activation the reference path multiplies: the online T3 for
+    ``ffn_down``, then MX fake quantization along the last axis (the head
+    stays exact unless ``quantize_head``)."""
     if _fused_t3(qm, role):
         x = tfm.apply_blockwise(
             x, tfm.hadamard_matrix(qm.t3_block, x.dtype, x.device))
     if role == "head" and not qm.quantize_head:
-        y = x @ w
-        return y if b is None else y + b
-    xq = _maybe_quant_act(x, qm)
-    wq = w if on_grid else _maybe_quant_weight(w, qm)
-    y = xq @ wq
-    return y if b is None else y + b
+        return x
+    return _maybe_quant_act(x, qm)
+
+
+def quant_weight(w, qm: QuantMode, role: str = "") -> torch.Tensor:
+    """The dense weight the reference path multiplies: MX fake-quantized
+    along its contraction axis, unless it already sits on the grid (or is
+    the exact head)."""
+    if _packed_on_grid(w, qm) or (role == "head" and not qm.quantize_head):
+        return maybe_dense(w)
+    return _maybe_quant_weight(maybe_dense(w), qm)
 
 
 def _parse_expert_spec(spec: str):
@@ -228,11 +252,5 @@ def qeinsum(spec: str, x: torch.Tensor, w, qm: QuantMode,
             y = y.reshape(w.shape[0], *rest, w.shape[-1])
             return torch.movedim(y, 0, e_pos).to(_out_dtype(x, w))
     ops.record_quant_path("qeinsum", "ref", role)
-    on_grid = _packed_on_grid(w, qm)
-    w = maybe_dense(w)
-    if _fused_t3(qm, role):
-        x = tfm.apply_blockwise(
-            x, tfm.hadamard_matrix(qm.t3_block, x.dtype, x.device))
-    xq = _maybe_quant_act(x, qm)
-    wq = w if on_grid else _maybe_quant_weight(w, qm)
-    return torch.einsum(spec, xq, wq)
+    return torch.einsum(spec, quant_act(x, qm, role),
+                        quant_weight(w, qm, role))

@@ -12,8 +12,9 @@ def resolve(device=None) -> torch.device:
     RuntimeError when the card is asked for and there is none — the CPU
     runs only when the caller passes ``device="cpu"``."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (expected cuda or cpu; "
+                         f"meta for shapes only)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the port runs on an NVIDIA GPU; "

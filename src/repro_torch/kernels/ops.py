@@ -10,6 +10,13 @@ package.
 
 ``launches`` counts, per wrapper, the calls that launched the CUDA kernel
 (plain-version calls are not counted); :func:`reset_launches` zeroes it.
+
+Under a mesh (``launch/pcontext.py``) an operand may be a ``DTensor``. The
+launches take raw pointers, so a ``DTensor`` never reaches them: the
+wrapper runs through :func:`on_whole` — every ``DTensor`` operand
+redistributed to ``Replicate()``, the wrapper run on the local tensors,
+its outputs wrapped back as ``Replicate()``. Each such call counts in
+``quant_paths`` under (name, "replicated", "").
 """
 from __future__ import annotations
 
@@ -51,6 +58,54 @@ def record_quant_path(op: str, path: str, role: str = "") -> None:
     """Count one dispatch decision of ``core.quantize``."""
     key = (op, path, role)
     quant_paths[key] = quant_paths.get(key, 0) + 1
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [_tree_map(fn, v) for v in tree]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(tree)
+
+
+def on_whole(fn, *trees):
+    """``fn(*trees)`` on whole tensors: each ``DTensor`` leaf (in nested
+    dicts, tuples and lists) is gathered to ``Replicate()`` and passed as
+    its local tensor, and each tensor leaf of the result comes back as a
+    replicated ``DTensor`` — what GSPMD does with a custom call it cannot
+    partition. Gradients flow through it. With no ``DTensor`` leaf it is
+    ``fn(*trees)``."""
+    found = []
+    _tree_map(lambda x: found.append(x) if _is_dtensor(x) else None, trees)
+    if not found:
+        return fn(*trees)
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = found[0].device_mesh
+    rep = [Replicate()] * dm.ndim
+    local = lambda x: (x.redistribute(dm, rep).to_local()
+                       if _is_dtensor(x) else x)
+    back = lambda x: (DTensor.from_local(x, dm, rep, run_check=False)
+                      if isinstance(x, torch.Tensor) else x)
+    return _tree_map(back, fn(*_tree_map(local, trees)))
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _replicated(fn):
+    """Run the decorated wrapper through :func:`on_whole` when any
+    positional operand is a ``DTensor`` (see the module doc)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not any(_is_dtensor(a) for a in args):
+            return fn(*args, **kwargs)
+        record_quant_path(fn.__name__, "replicated")
+        return on_whole(functools.partial(fn, **kwargs), *args)
+    return wrapper
 
 
 def _on_card(*ts) -> bool:
@@ -122,6 +177,7 @@ def _quantize(x, fmt: str, t3: bool):
     return codes, scales
 
 
+@_replicated
 def mx_quantize(x, fmt: str = "mxfp4"):
     """MX-encode x (M, K) float, K % 32 == 0, per 32-block along K: returns
     (codes uint8 (M, K), one symmetric code per byte; scales float32
@@ -130,6 +186,7 @@ def mx_quantize(x, fmt: str = "mxfp4"):
     return _quantize(x, fmt, False)
 
 
+@_replicated
 def t3_quantize(x, fmt: str = "mxfp4"):
     """The online T3: rotate each 32-block of x (M, K) by the Hadamard H32,
     then MX-encode as :func:`mx_quantize` — (codes uint8 (M, K), scales
@@ -137,6 +194,7 @@ def t3_quantize(x, fmt: str = "mxfp4"):
     return _quantize(x, fmt, True)
 
 
+@_replicated
 def mx_gemm(x, w_codes, w_scales, fmt: str = "mxfp4") -> torch.Tensor:
     """Fused MX GEMM over the unpacked weight layout: y = Q_mx(x) @
     deq(w), f32 out.
@@ -229,6 +287,7 @@ def _gemm_batched(x, w_packed, w_scales_e8m0, fmt, t3):
     return y
 
 
+@_replicated
 def mx_gemm_packed(x, w_packed, w_scales_e8m0, fmt: str = "mxfp4",
                    t3: bool = False) -> torch.Tensor:
     """Packed-native fused MX GEMM: y = Q_mx(x [· blockdiag(H32)]) @
@@ -310,6 +369,7 @@ def _flash_decode_contract(q, k_codes, k_scales, v_codes, v_scales,
             and v_scales.shape == k_scales.shape)
 
 
+@_replicated
 def mx_flash_decode(q, k_codes, k_scales, v_codes, v_scales, q_pos, kv_len,
                     fmt: str = "mxfp8", window: int = 0) -> torch.Tensor:
     """Flash-decode attention over a contiguous packed MX KV cache.
@@ -379,6 +439,7 @@ def _flash_decode_paged_contract(q, k_codes, k_scales, v_codes, v_scales,
             and v_scales.shape == k_scales.shape)
 
 
+@_replicated
 def mx_flash_decode_paged(q, k_codes, k_scales, v_codes, v_scales,
                           block_tables, q_pos, kv_len, fmt: str = "mxfp8",
                           window: int = 0) -> torch.Tensor:
@@ -456,6 +517,7 @@ def _flash_prefill_contract(q, k_chunk, v_chunk, k_codes, k_scales,
             and v_scales.shape == k_scales.shape)
 
 
+@_replicated
 def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
                      v_scales, block_tables, q_start, kv_len,
                      fmt: str = "mxfp8", window: int = 0):

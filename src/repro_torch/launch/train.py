@@ -1,4 +1,4 @@
-"""Training entry point of the port, on one device:
+"""Training entry point of the port:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --reduced --steps 20 --batch 8 --seq 128 --ckpt-dir DIR \
@@ -6,12 +6,21 @@
 
 The flags are the JAX package's (``repro.launch.train``) plus ``--device``
 (default: the CUDA card). Rerun with the same ``--ckpt-dir`` to resume from
-its latest checkpoint. ``--distributed`` and its flags belong to the
-parallel layouts (ROADMAP Queue 1 item 6) and are refused.
+its latest checkpoint.
+
+Distributed: ``--distributed`` starts a process group and trains
+data-parallel over a (ranks, 1) ("data", "model") mesh, as the JAX CLI
+does — one process per rank, NCCL on the cards or gloo with
+``--device cpu``. The group's address comes from
+torchrun's environment (``torchrun --nproc-per-node 4 -m
+repro_torch.launch.train --distributed ...``) or from ``--coordinator
+host:port --num-processes N --process-id I`` (as the JAX CLI takes them).
+Rank 0 writes the checkpoints and prints the result.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -33,12 +42,32 @@ def main(argv=None) -> int:
     ap.add_argument("--process-id", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.distributed or args.num_processes != 1 or args.coordinator:
-        raise SystemExit(
-            "train: --distributed needs the port's parallel layouts "
-            "(launch/mesh.py, shardings.py, pcontext.py), ROADMAP Queue 1 "
-            "item 6; the port trains on one device")
+    mesh = None
+    if args.distributed:
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as mesh_lib
+        if args.coordinator:
+            addr = args.coordinator
+            mesh_lib.init_distributed(
+                addr if addr.startswith("tcp://") else f"tcp://{addr}",
+                world_size=args.num_processes, rank=args.process_id,
+                device=args.device)
+        elif "RANK" in os.environ:
+            mesh_lib.init_distributed("env://", device=args.device)
+        else:
+            raise SystemExit(
+                "train: --distributed needs torchrun's environment (RANK, "
+                "WORLD_SIZE, MASTER_ADDR, MASTER_PORT) or --coordinator "
+                "host:port with --num-processes and --process-id")
+        mesh = mesh_lib.make_host_mesh(data=dist.get_world_size(), model=1)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
+
+def _train(args, mesh) -> int:
     from repro_torch import configs
     from repro_torch.training import optimizer as opt
     from repro_torch.training.trainer import TrainConfig, Trainer
@@ -50,9 +79,11 @@ def main(argv=None) -> int:
         accum=args.accum, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir,
         opt=opt.AdamWConfig(lr=args.lr, total_steps=args.steps))
-    trainer = Trainer(cfg, tc, device=args.device)
+    trainer = Trainer(cfg, tc, device=args.device, mesh=mesh)
     trainer.train()
-    print(f"final eval ppl: {trainer.eval_ppl():.3f}")
+    ppl = trainer.eval_ppl()
+    if mesh is None or mesh.device_mesh.get_rank() == 0:
+        print(f"final eval ppl: {ppl:.3f}")
     return 0
 
 

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantize import QuantMode
+from repro_torch.launch import pcontext as pctx
 
 from . import griffin, moe, ssd, transformer
 
@@ -43,8 +44,23 @@ def _step(cfg: ArchConfig, name: str, message: str):
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None):
-    return module_for(cfg).init(gen, cfg, dtype, device)
+         device=None, place=None):
+    """Seeded random parameters. ``place(name, leaf)`` lays out each leaf
+    as it is made (``name`` its key; the trainer under a mesh keeps each
+    rank's shard), the large ones before the next is drawn, so the whole
+    tree never lives at once; the draws are the same either way."""
+    if place is None:
+        return module_for(cfg).init(gen, cfg, dtype, device)
+    return _place(module_for(cfg).init(gen, cfg, dtype, device, place),
+                  place)
+
+
+def _place(tree, place, name: str = ""):
+    """``place`` over the leaves a family's init left as they were made
+    (the norms and biases; ``place`` keeps a laid-out leaf as it is)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, place, k) for k, v in tree.items()}
+    return place(name, tree)
 
 
 def forward(params, cfg: ArchConfig, inputs,
@@ -143,8 +159,16 @@ def fold(params, cfg: ArchConfig, tset):
 # Losses
 # ---------------------------------------------------------------------------
 
+def _whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Logits with the vocab axis whole on each rank (under a mesh the
+    head leaves it sharded over "model"): DTensor's gather over a
+    sharded axis (its masked partial) does not survive the reduction, so
+    the CE all-gathers the vocab instead of GSPMD's vocab-parallel CE."""
+    return pctx.shard(logits, "batch", *([None] * (logits.ndim - 1)))
+
+
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    lf = logits.float()
+    lf = _whole_vocab(logits.float())
     return (torch.logsumexp(lf, dim=-1)
             - torch.gather(lf, -1, labels.long()[..., None])[..., 0])
 
@@ -163,18 +187,43 @@ class _CEMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         logits, labels = ctx.saved_tensors
-        p = torch.softmax(logits.float(), dim=-1)
-        idx = labels.long()[..., None]
-        p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0,
-                                           device=p.device))
-        return (p * (g / labels.numel())).to(logits.dtype), None
+        return _ce_grad(logits, labels, g / labels.numel()), None
+
+
+class _CETokens(torch.autograd.Function):
+    """Per-token CE with :class:`_CEMean`'s backward: under a mesh each
+    rank runs it on its own lanes (the vocab gathered), and the mean is
+    taken over the ranks' tokens, so the gradient is the same formula
+    with the same roundings."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(logits, labels)
+        return _nll(logits, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        return _ce_grad(logits, labels, g[..., None]), None
+
+
+def _ce_grad(logits, labels, scale):
+    """(softmax - onehot) * scale in the logits' dtype."""
+    p = torch.softmax(logits.float(), dim=-1)
+    idx = labels.long()[..., None]
+    p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, device=p.device))
+    return (p * scale).to(logits.dtype)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Token-level CE: logits (..., V), labels (...) int; the mean over
-    tokens (:class:`_CEMean`), or over the tokens where ``mask`` is
-    set."""
+    tokens (:class:`_CEMean`; under a mesh :class:`_CETokens` on each
+    rank's lanes), or over the tokens where ``mask`` is set."""
+    if mask is None and pctx.is_dtensor(logits):
+        lanes = ("batch",) + (None,) * (labels.ndim - 1)
+        return pctx.local(_CETokens.apply, (logits, labels),
+                          (lanes + (None,), lanes), out_like=1).mean()
     if mask is None:
         return _CEMean.apply(logits, labels)
     nll = _nll(logits, labels)

@@ -33,12 +33,14 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import folding as fold_lib
-from repro_torch.core.quantize import QuantMode, qlinear
+from repro_torch.core.quantize import QuantMode
 from repro_torch.kernels.packing import PackedKV, torch_dtype
+from repro_torch.launch import pcontext as pctx
 
 from .layers import (attention, causal_conv1d, conv1d_step, dense_init,
-                     flash_attention, gated_mlp, kv_heads_view,
-                     kv_write_slice, rms_norm, softplus)
+                     embed_lookup, flash_attention, gated_mlp, kv_heads_view,
+                     kv_pack, kv_write_slice, merge_heads, qlinear,
+                     rms_norm, softplus, split_heads)
 from .transformer import _layer, _qkv, head_matrix, head_out
 
 C_RGLRU = 8.0
@@ -95,30 +97,34 @@ def _attn_layer(gen, cfg: ArchConfig, dtype, device):
     }
 
 
-def _stack(maker, gen, n, cfg, dtype, device):
+def _stack(maker, gen, n, cfg, dtype, device, place=lambda name, t: t):
     layers = [maker(gen, cfg, dtype, device) for _ in range(n)]
-    return {k: torch.stack([lyr[k] for lyr in layers]) for k in layers[0]}
+    return {k: place(k, torch.stack([lyr.pop(k) for lyr in layers]))
+            for k in list(layers[0])}
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None):
+         device=None, place=lambda name, t: t):
     """Seeded random parameters at ``cfg``'s widths (the JAX package's
-    layout and scales; ``torch.Generator`` draws, so the values differ)."""
+    layout and scales; ``torch.Generator`` draws, so the values differ);
+    ``place`` as :func:`repro_torch.models.api.init` takes it (a sub-layer
+    kind's layers are drawn whole, then laid out leaf by leaf)."""
     device = gen.device if device is None else device
     ns, nt = cfg.n_super_blocks, cfg.n_tail_rec
+    stack = lambda maker, n: _stack(maker, gen, n, cfg, dtype, device, place)
     params = {
-        "super": {"r1": _stack(_rec_layer, gen, ns, cfg, dtype, device),
-                  "r2": _stack(_rec_layer, gen, ns, cfg, dtype, device),
-                  "at": _stack(_attn_layer, gen, ns, cfg, dtype, device)},
+        "super": {"r1": stack(_rec_layer, ns), "r2": stack(_rec_layer, ns),
+                  "at": stack(_attn_layer, ns)},
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=device) * 0.02).to(dtype),
+        "embed": place("embed", (torch.randn(
+            (cfg.vocab_size, cfg.d_model), generator=gen, device=device)
+            * 0.02).to(dtype)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
-                                    device=device)
+        params["head"] = place("head", dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dtype, device=device))
     if nt:
-        params["tail"] = _stack(_rec_layer, gen, nt, cfg, dtype, device)
+        params["tail"] = stack(_rec_layer, nt)
     return params
 
 
@@ -183,9 +189,22 @@ def rec_sublayer(x, p, cfg: ArchConfig, qm: QuantMode):
     u = qlinear(h, p["wx"], p.get("bx"), qm, "rec_in")
     gate = _gelu(qlinear(h, p["wy"], p.get("by"), qm, "rec_in"))
     conv_tail = u[:, -(K - 1):, :].transpose(1, 2)
-    u = causal_conv1d(u, p["conv_w"], p["conv_b"])
-    a, b = _rglru_gates(u, p)
-    _, hs = associative_scan(a, b)
+
+    def recur(u, conv_w, conv_b, ga_w, ga_b, gx_w, gx_b, lam):
+        # the conv and the RG-LRU act channel by channel: under a mesh
+        # each rank runs its lanes and its "model" share of the channels
+        u = causal_conv1d(u, conv_w, conv_b)
+        a, b = _rglru_gates(u, {"ga_w": ga_w, "ga_b": ga_b, "gx_w": gx_w,
+                                "gx_b": gx_b, "lam": lam})
+        return associative_scan(a, b)[1]
+    # the channels follow the conv weight's layout (split over "model"
+    # under tensor parallelism, whole where the weights are)
+    split = pctx.is_dtensor(p["conv_w"]) and any(
+        q.is_shard() for q in p["conv_w"].placements)
+    ch = ("model" if split else None,)
+    hs = pctx.local(recur, (u, p["conv_w"], p["conv_b"], p["ga_w"],
+                            p["ga_b"], p["gx_w"], p["gx_b"], p["lam"]),
+                    (("batch", None) + ch, ch + (None,)) + (ch,) * 6)
     out = (hs * gate).to(x.dtype)
     out = qlinear(out, p["wor"], p.get("bor"), qm, "rec_out")
     return x + out, (hs[:, -1], conv_tail)
@@ -221,11 +240,11 @@ def attn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode, pos):
     Returns (x', k (B, S, kv_dim) after RoPE, v)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg, qm, pos)
-    heads = (B, S, cfg.n_kv_heads, cfg.head_dim)
-    out = flash_attention(q, k.reshape(heads), v.reshape(heads), causal=True,
-                          window=cfg.window, chunk=cfg.attn_chunk)
-    out = qlinear(out.reshape(B, S, cfg.q_dim), p["wo"], p.get("bo"), qm,
-                  "attn_out")
+    out = flash_attention(q, split_heads(k, cfg.n_kv_heads, cfg.head_dim),
+                          split_heads(v, cfg.n_kv_heads, cfg.head_dim),
+                          causal=True, window=cfg.window,
+                          chunk=cfg.attn_chunk)
+    out = qlinear(merge_heads(out), p["wo"], p.get("bo"), qm, "attn_out")
     return x + out, k, v
 
 
@@ -288,7 +307,7 @@ def forward(params, cfg: ArchConfig, inputs,
     ``cfg.remat`` each super-block (and each tail layer) is recomputed in
     the backward, as the JAX package's ``jax.checkpoint`` of its scan
     body."""
-    x = params["embed"][inputs.long()]
+    x = pctx.shard(embed_lookup(params["embed"], inputs), "batch", None, None)
     pos = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
 
@@ -298,10 +317,14 @@ def forward(params, cfg: ArchConfig, inputs,
         return fn(*args)
 
     for i in range(cfg.n_super_blocks):
-        x = run(lambda x, pl: _super_fwd(x, pl, cfg, qm, pos), x,
+        # a sequence-parallel residual is gathered at the block's entry
+        x = run(lambda x, pl: _super_fwd(pctx.shard(x, "batch", None, None),
+                                         pl, cfg, qm, pos), x,
                 _super(params, i))
+        x = pctx.shard(x, "batch", "seq", None)
     for i in range(cfg.n_tail_rec):
-        x = run(lambda x, pl: _tail_fwd(x, pl, cfg, qm), x,
+        x = run(lambda x, pl: _tail_fwd(pctx.shard(x, "batch", None, None),
+                                        pl, cfg, qm), x,
                 _layer(params["tail"], i))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return head_out(x, params, cfg, qm)
@@ -340,13 +363,19 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
     cache). The ring holds min(max(S, max_len), window) slots; the last
     min(S, A) keys are packed at slot = position % A, the rest stay zero
     (never-written slots are masked by their negative position)."""
-    x = params["embed"][inputs.long()]
+    x = pctx.shard(embed_lookup(params["embed"], inputs), "batch", None, None)
     B, S = x.shape[0], x.shape[1]
     dev = x.device
     pos = torch.arange(S, device=dev)
     A = min(max(S, max_len or S), cfg.window)
     W = min(S, A)
     slots = torch.arange(S - W, S, device=dev) % A
+
+    def ring(t):
+        # the last W keys at slot = position % A (each rank its lanes)
+        out = t.new_zeros((t.shape[0], A, t.shape[2]))
+        out[:, slots] = t[:, S - W:]
+        return out
     cks, cvs, hs, cs = [], [], [], []
     for i in range(cfg.n_super_blocks):
         pl = _super(params, i)
@@ -356,18 +385,18 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
         x = mlp_sublayer(x, pl["r2"], cfg, qm)
         x, k, v = attn_sublayer(x, pl["at"], cfg, qm, pos)
         x = mlp_sublayer(x, pl["at"], cfg, qm)
-        ck = k.new_zeros((B, A, cfg.kv_dim))
-        cv = v.new_zeros((B, A, cfg.kv_dim))
-        ck[:, slots] = k[:, S - W:]
-        cv[:, slots] = v[:, S - W:]
+        x = pctx.shard(x, "batch", "seq", None)
+        ck, cv = pctx.local(lambda k, v: (ring(k), ring(v)), (k, v),
+                            (("batch", None, None),) * 2, out_like=(0, 1))
+        x = pctx.shard(x, "batch", None, None)
         cks.append(ck)
         cvs.append(cv)
         hs.append(torch.stack([h1, h2]))
         cs.append(torch.stack([c1, c2]))
     ck, cv = torch.stack(cks), torch.stack(cvs)
     if kv_quant is not None:
-        ck = PackedKV.from_dense(ck, kv_quant.fmt)
-        cv = PackedKV.from_dense(cv, kv_quant.fmt)
+        ck = kv_pack(ck, kv_quant.fmt, lanes=1)
+        cv = kv_pack(cv, kv_quant.fmt, lanes=1)
     cache = {"attn_k": ck, "attn_v": cv,
              "rec_h": torch.stack(hs).float(), "rec_conv": torch.stack(cs)}
     if cfg.n_tail_rec:
@@ -392,7 +421,8 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
     cl = int(cur_len)
     ck = cache["attn_k"]
     dt = torch_dtype(ck.dtype) if isinstance(ck, PackedKV) else ck.dtype
-    x = params["embed"][inputs.long()[:, None]].to(dt)
+    x = pctx.shard(embed_lookup(params["embed"], inputs[:, None]).to(dt),
+                   "batch", None, None)
     hs, cs = cache["rec_h"], cache["rec_conv"]
     for i in range(cfg.n_super_blocks):
         pl = _super(params, i)

@@ -20,12 +20,69 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantize import QuantMode, qlinear
+from repro_torch.core import quantize
+from repro_torch.core.quantize import QuantMode
 from repro_torch.kernels import ops
-from repro_torch.kernels.packing import PackedKV, PagedKV, kv_encode
+from repro_torch.kernels.packing import (PackedKV, PagedKV, kv_decode,
+                                         kv_encode, torch_dtype)
 from repro_torch.kernels.ref import sm_scale
+from repro_torch.launch import pcontext as pctx
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Projections and KV codecs under a mesh
+# ---------------------------------------------------------------------------
+
+def qlinear(x: torch.Tensor, w, b, qm: QuantMode, role: str = ""):
+    """:func:`repro_torch.core.quantize.qlinear`. Under a mesh its
+    reference path runs the MX numerics (T3, the quantizers) as islands on
+    each rank's whole blocks — rows made whole first, a partial sum
+    reduced — and the product as a ``DTensor`` matmul; the packed kernel's
+    wrapper takes whole operands itself."""
+    if not pctx.is_dtensor(x) or quantize.fused_route(x, w, qm, role):
+        return quantize.qlinear(x, w, b, qm, role)
+    ops.record_quant_path("qlinear", "ref", role)
+    x = pctx.rows_whole(x)
+    block = lambda c: c.block_size if qm.enabled and c is not None else 0
+    bx = max(qm.t3_block if role == "ffn_down" else 0, block(qm.act_cfg))
+    xq = x if not bx else pctx.blockwise(
+        lambda t: quantize.quant_act(t, qm, role), x, bx)
+    if pctx.is_dtensor(w) and block(qm.weight_cfg):
+        wq = pctx.blockwise(
+            lambda t: quantize.quant_weight(t.mT, qm, role).mT, w.mT,
+            block(qm.weight_cfg)).mT
+    else:
+        wq = quantize.quant_weight(w, qm, role)
+    y = xq @ wq
+    return y if b is None else y + b
+
+
+def _lanes(x, lanes: int) -> tuple:
+    return tuple("batch" if i == lanes else None for i in range(x.ndim))
+
+
+def kv_codes(x: torch.Tensor, fmt: str, lanes: int = 0):
+    """``kv_encode(x, fmt)``; under a mesh each rank encodes its own lanes
+    (axis ``lanes``), the feature axis whole."""
+    n = _lanes(x, lanes)
+    return pctx.local(lambda t: kv_encode(t, fmt), (x,), (n,),
+                      out_like=(0, 0))
+
+
+def kv_pack(x: torch.Tensor, fmt: str, lanes: int = 0) -> PackedKV:
+    """``PackedKV.from_dense`` through :func:`kv_codes`."""
+    c, s = kv_codes(x, fmt, lanes)
+    return PackedKV(c, s, fmt, str(x.dtype).replace("torch.", ""))
+
+
+def kv_dense(c: PackedKV, lanes: int = 0) -> torch.Tensor:
+    """``c.to_dense()``; under a mesh each rank decodes its own lanes."""
+    n = _lanes(c.codes, lanes)
+    return pctx.local(
+        lambda a, s: kv_decode(a, s, c.fmt, torch_dtype(c.dtype)),
+        (c.codes, c.scales), (n, n))
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +96,7 @@ def kv_write_rows(cache, new: torch.Tensor, rows: torch.Tensor):
     bidx = torch.arange(new.shape[0], device=new.device)
     rows = torch.as_tensor(rows, device=new.device).long()
     if isinstance(cache, PackedKV):
-        c, s = kv_encode(new, cache.fmt)
+        c, s = kv_codes(new, cache.fmt)
         cache.codes[bidx, rows] = c[:, 0]
         cache.scales[bidx, rows] = s[:, 0]
         return cache
@@ -53,7 +110,7 @@ def kv_write_slice(cache, new: torch.Tensor, start: int):
     C = new.shape[1]
     st = int(start)
     if isinstance(cache, PackedKV):
-        c, s = kv_encode(new, cache.fmt)
+        c, s = kv_codes(new, cache.fmt)
         cache.codes[:, st:st + C] = c
         cache.scales[:, st:st + C] = s
         return cache
@@ -86,7 +143,7 @@ def kv_write_spec(cache, new: torch.Tensor, slots: tuple):
     dense."""
     b, j, t = (s.to(new.device) for s in slots)
     if isinstance(cache, PackedKV):
-        c, s = kv_encode(new[b, j][None], cache.fmt)
+        c, s = kv_codes(new[b, j][None], cache.fmt)
         cache.codes[b, t] = c[0]
         cache.scales[b, t] = s[0]
         return cache
@@ -107,7 +164,7 @@ def kv_write_token_paged(pool: PagedKV, new: torch.Tensor,
     if pool.fmt == "none":
         pool.codes[pages, offs] = new[:, 0].to(pool.codes.dtype)
         return pool
-    c, s = kv_encode(new, pool.fmt)
+    c, s = kv_codes(new, pool.fmt)
     pool.codes[pages, offs] = c[:, 0]
     pool.scales[pages, offs] = s[:, 0]
     return pool
@@ -135,7 +192,7 @@ def kv_write_chunk_paged(pool: PagedKV, new: torch.Tensor,
     if pool.fmt == "none":
         pool.codes[pages, offs] = new.to(pool.codes.dtype)
         return pool
-    c, s = kv_encode(new, pool.fmt)
+    c, s = kv_codes(new, pool.fmt)
     pool.codes[pages, offs] = c
     pool.scales[pages, offs] = s
     return pool
@@ -174,10 +231,34 @@ def kv_write_spec_paged(pool: PagedKV, new: torch.Tensor,
     if pool.fmt == "none":
         pool.codes[pages, offs] = new[b, j].to(pool.codes.dtype)
         return pool
-    c, s = kv_encode(new[b, j][None], pool.fmt)
+    c, s = kv_codes(new[b, j][None], pool.fmt)
     pool.codes[pages, offs] = c[0]
     pool.scales[pages, offs] = s[0]
     return pool
+
+
+def split_heads(t, n: int, dh: int):
+    """(B, S, n*dh) -> (B, S, n, dh). Under a mesh the feature axis stays
+    split over "model" only where the head count divides by it (a split
+    inside a head cannot be unflattened); otherwise it is gathered first."""
+    B, S = t.shape[0], t.shape[1]
+    ax = pctx.resolve("model")
+    if ax is not None and n % pctx.axis_size(ax) != 0:
+        t = pctx.shard(t, "batch", None, None)
+    return t.reshape(B, S, n, dh)
+
+
+def merge_heads(t):
+    """(B, S, n, dh) -> (B, S, n*dh). Under a mesh whose "model" axis does
+    not divide the head count the heads are made whole on every rank, and
+    so is the gradient the reshape's backward hands them (DTensor cannot
+    split a split feature axis into heads)."""
+    B, S, n, dh = t.shape
+    ax = pctx.resolve("model")
+    if ax is not None and n % pctx.axis_size(ax) != 0:
+        t = pctx.shard(t, "batch", None, None, None)
+        return pctx.grad_like(t.reshape(B, S, n * dh))
+    return t.reshape(B, S, n * dh)
 
 
 def kv_heads_view(c, kvh: int, dh: int):
@@ -185,7 +266,17 @@ def kv_heads_view(c, kvh: int, dh: int):
     A ``PackedKV`` passes through: attention dispatches on it."""
     if isinstance(c, PackedKV):
         return c
-    return c.reshape(c.shape[0], c.shape[1], kvh, dh)
+    return split_heads(c, kvh, dh)
+
+
+def shard_kv(c, *names):
+    """``pctx.shard`` over a cache leaf; a ``PackedKV`` shards its
+    children (codes and E8M0 bytes share the leading axes, and the
+    feature axis is each one's last)."""
+    if isinstance(c, PackedKV):
+        return PackedKV(pctx.shard(c.codes, *names),
+                        pctx.shard(c.scales, *names), c.fmt, c.dtype)
+    return pctx.shard(c, *names)
 
 
 def attention_paged(q: torch.Tensor, k_pool: PagedKV, v_pool: PagedKV,
@@ -284,11 +375,21 @@ def _attention_packed(q, k: PackedKV, v: PackedKV, *, causal, q_pos,
             torch.as_tensor(kv_len).reshape(-1), k.fmt, window=window)
         return out.reshape(B, Sq, H, Dh).to(q.dtype)
     kvh = k.shape[-1] // Dh
-    kd = kv_heads_view(k.to_dense(), kvh, Dh)
-    vd = kv_heads_view(v.to_dense(), kvh, Dh)
+    kd = kv_heads_view(kv_dense(k), kvh, Dh)
+    vd = kv_heads_view(kv_dense(v), kvh, Dh)
     return attention(q, kd, vd, causal=causal, q_pos=q_pos,
                      k_start=k_start, window=window, kv_len=kv_len,
                      k_positions=k_positions, chunk=chunk)
+
+
+def _head_names(H: int, K: int) -> tuple:
+    """Logical names of a (B, S, heads, Dh) attention operand: heads over
+    "model" only where both the query and the KV head counts divide by it
+    (so each rank's query heads meet their own KV heads)."""
+    ax = pctx.resolve("model")
+    size = 1 if ax is None else pctx.axis_size(ax)
+    split = ax is not None and H % size == 0 and K % size == 0
+    return ("batch", None, "model" if split else None, None)
 
 
 def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
@@ -308,6 +409,24 @@ def attention(q: torch.Tensor, k, v, *, causal: bool, q_pos,
                                  k_start=k_start, window=window,
                                  kv_len=kv_len, k_positions=k_positions,
                                  chunk=chunk, backend=backend)
+    if pctx.is_dtensor(q) or pctx.is_dtensor(k):
+        # under a mesh each rank attends its own lanes and heads
+        lane = lambda t: (None if t is None or torch.as_tensor(t).ndim == 0
+                          or torch.as_tensor(t).shape[0] != q.shape[0]
+                          or torch.as_tensor(t).ndim > 2 else
+                          ("batch",) + (None,) * (torch.as_tensor(t).ndim - 1))
+        qpt = torch.as_tensor(q_pos, device=q.device)
+        klt = None if kv_len is None else torch.as_tensor(kv_len,
+                                                          device=q.device)
+        heads = _head_names(q.shape[2], k.shape[2])
+        qpn = lane(qpt) if qpt.ndim == 2 else None
+        kln = None if klt is None else lane(klt)
+        return pctx.local(
+            lambda q, k, v, qp, kl: attention(
+                q, k, v, causal=causal, q_pos=qp, k_start=k_start,
+                window=window, kv_len=kl, k_positions=k_positions,
+                chunk=chunk),
+            (q, k, v, qpt, klt), (heads, heads, heads, qpn, kln))
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -444,9 +563,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, K = k.shape[1], k.shape[2]
     if Sk % chunk != 0 or Sk <= chunk:
         chunk = Sk
-    out = _FlashAttention.apply(q.reshape(B, Sq, K, H // K, Dh), k, v,
-                                causal, window, chunk, sm_scale(Dh))
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+    def run(q, k, v):           # on each rank's lanes and heads
+        b, sq, h, dh = q.shape
+        kv = k.shape[2]
+        out = _FlashAttention.apply(q.reshape(b, sq, kv, h // kv, dh), k, v,
+                                    causal, window, chunk, sm_scale(Dh))
+        return out.reshape(b, sq, h, dh).to(q.dtype)
+    heads = _head_names(H, K)
+    return pctx.local(run, (q, k, v), (heads,) * 3)
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +612,24 @@ def conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(x_t.dtype)
     return y, full[:, :, 1:]
+
+
+def embed_lookup(table, ids):
+    """``table[ids]`` (rows of the token embedding), laid out over the
+    batch under a mesh: each rank looks its lanes' tokens up in the whole
+    table (DTensor's own rule for a row lookup in a vocab-split table did
+    not survive its backward in every torch release)."""
+    ids = ids.long()
+    if not pctx.is_dtensor(table):
+        return table[ids]
+    names = ("batch",) + (None,) * (ids.ndim - 1)
+    return pctx.local(lambda t, i: t[i], (table, ids),
+                      ((None, None), names), out_like=1)
+
+
+def shard_batch(x, *rest):
+    """Annotate a (B, ...) activation with batch sharding."""
+    return pctx.shard(x, "batch", *rest)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,

@@ -24,10 +24,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import folding as fold_lib
-from repro_torch.core.quantize import QuantMode, qeinsum, qlinear
+from repro_torch.core.quantize import QuantMode, qeinsum
+from repro_torch.launch import pcontext as pctx
 
 from . import transformer as dense
-from .layers import gated_mlp, rms_norm
+from .layers import gated_mlp, qlinear, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -35,7 +36,7 @@ from .layers import gated_mlp, rms_norm
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None):
+         device=None, place=lambda name, t: t):
     """Seeded random parameters at ``cfg``'s widths: the dense family's
     attention, embeddings and norms, with the dense FFN replaced by a
     router (L, d, E), experts ``eg``/``eu`` (L, E, d, f) and ``ed`` (L, E,
@@ -45,26 +46,26 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     device = gen.device if device is None else device
     L, d, fe = cfg.n_layers, cfg.d_model, cfg.d_ff
     E, ns = cfg.n_experts, cfg.n_shared_experts
-    params = dense.init(gen, cfg, dtype, device)
+    params = dense.init(gen, cfg, dtype, device, place)
     b = dict(params["blocks"])
     for k in ("wg", "wu", "wd"):
         del b[k]
     std_in = 1.0 / d ** 0.5
     std_out = 1.0 / fe ** 0.5 / (2.0 * L) ** 0.5
 
-    def randn(shape, scale):
-        return (torch.randn(shape, generator=gen, device=device)
-                * scale).to(dtype)
+    def randn(name, shape, scale):
+        return place(name, (torch.randn(shape, generator=gen, device=device)
+                            * scale).to(dtype))
 
-    b["router"] = randn((L, d, E), 0.02)
-    b["eg"] = randn((L, E, d, fe), std_in)
-    b["eu"] = randn((L, E, d, fe), std_in)
-    b["ed"] = randn((L, E, fe, d), std_out)
+    b["router"] = randn("router", (L, d, E), 0.02)
+    b["eg"] = randn("eg", (L, E, d, fe), std_in)
+    b["eu"] = randn("eu", (L, E, d, fe), std_in)
+    b["ed"] = randn("ed", (L, E, fe, d), std_out)
     if ns:
         fs = ns * fe
-        b["sg"] = randn((L, d, fs), std_in)
-        b["su"] = randn((L, d, fs), std_in)
-        b["sd"] = randn((L, fs, d), std_out)
+        b["sg"] = randn("sg", (L, d, fs), std_in)
+        b["su"] = randn("su", (L, d, fs), std_in)
+        b["sd"] = randn("sd", (L, fs, d), std_out)
     params["blocks"] = b
     return params
 
@@ -125,48 +126,79 @@ def moe_ffn(x: torch.Tensor, p, cfg: ArchConfig, qm: QuantMode):
     C = capacity(cfg, Tg)
     dev = x.device
 
-    xt = x.reshape(G, Tg, d)
-    top_p, top_i, probs, logits = route(xt, p, cfg, qm)
+    xt = pctx.shard(x.reshape(G, Tg, d), "batch", None, None)
+    router = (p["router"], p.get("brouter"))
+
+    def dispatch(xt, w, b):
+        # routing and the capacity dispatch of each token group (local to
+        # its groups under a mesh: the expert axis stays whole here)
+        top_p, top_i, probs, logits = route(xt, {"router": w,
+                                                  "brouter": b}, cfg, qm)
+        frac_tokens = F.one_hot(top_i, E).float().sum(2).mean(1)  # (G, E)
+        flat_e, pos, kept = positions(top_i, E, C)
+        # each kept (token, slot) owns its own slot, so the buffer is a
+        # gather of the tokens (slot -> token; Tg, a zero row, where no
+        # token landed); dropped ones write a spare column C
+        tok = torch.arange(Tg, device=dev).repeat_interleave(K)  # (TK,)
+        slot = torch.full((xt.shape[0], E * (C + 1)), Tg, dtype=torch.long,
+                          device=dev)
+        slot.scatter_(1, flat_e * (C + 1) + torch.where(kept, pos, C),
+                      tok.expand(xt.shape[0], -1))
+        slot = slot.view(-1, E, C + 1)[:, :, :C].reshape(-1, E * C, 1)
+        xpad = torch.cat([xt, xt.new_zeros(xt.shape[0], 1, d)], dim=1)
+        buf = torch.take_along_dim(xpad, slot, dim=1).reshape(-1, E, C, d)
+        # combine weights: a (token, slot)'s flat buffer index and gate
+        idx = flat_e * C + pos.clamp(0, C - 1)
+        gate = top_p.reshape(xt.shape[0], Tg * K).to(x.dtype) * kept.to(
+            x.dtype)
+        return (buf, idx, gate, frac_tokens, probs.mean(1),
+                torch.logsumexp(logits, dim=-1))
+
+    grp = ("batch", None, None)
+    buf, idx, gate, frac_tokens, frac_probs, lse = pctx.local(
+        dispatch, (xt, *router), (grp, None if router[0] is None else
+                                  (None, None),
+                                  None if router[1] is None else (None,)),
+        out_like=(0, 0, 0, 0, 0, 0))
 
     # aux losses (Switch LBL + z-loss)
-    dense_mask = F.one_hot(top_i, E).float().sum(2)
-    frac_tokens = dense_mask.mean(1)                           # (G, E)
-    frac_probs = probs.mean(1)                                 # (G, E)
     lbl = E * (frac_tokens * frac_probs).sum(-1).mean()
-    zloss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    zloss = (lse ** 2).mean()
 
-    flat_e, pos, kept = positions(top_i, E, C)
-    flat_p = top_p.reshape(G, Tg * K).to(x.dtype)
-    keep = kept.to(x.dtype)
-    pos_c = pos.clamp(0, C - 1)
-    tok = torch.arange(Tg, device=dev).repeat_interleave(K)    # (TK,)
+    # expert compute: the buffer moves to the expert-parallel layout (the
+    # expert axis over "model"), and back for the combine
+    buf = pctx.shard(buf, "batch", "model", None, None)
 
-    # dispatch into (G, E, C, d): each kept (token, slot) owns its own slot,
-    # so the buffer is a gather of the tokens (slot -> token; Tg, a zero
-    # row, where no token landed); dropped ones write a spare column C
-    slot = torch.full((G, E * (C + 1)), Tg, dtype=torch.long, device=dev)
-    slot.scatter_(1, flat_e * (C + 1) + torch.where(kept, pos, C),
-                  tok.expand(G, -1))
-    slot = slot.view(G, E, C + 1)[:, :, :C].reshape(G, E * C, 1)
-    xpad = torch.cat([xt, xt.new_zeros(G, 1, d)], dim=1)
-    buf = torch.take_along_dim(xpad, slot, dim=1).reshape(G, E, C, d)
+    def experts(buf, eg, eu, ed, beg, beu):
+        # each rank runs its groups through its share of the experts
+        g = qeinsum("gecd,edf->gecf", buf, eg, qm, "ffn_in")
+        u = qeinsum("gecd,edf->gecf", buf, eu, qm, "ffn_in")
+        if beg is not None:  # folded-transform biases (per expert)
+            g = g + beg[None, :, None, :].to(g.dtype)
+            u = u + beu[None, :, None, :].to(u.dtype)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return qeinsum("gecf,efd->gecd", h, ed, qm, "ffn_down")
+    ep = ("model", None, None)
+    eo = pctx.local(experts, (buf, p["eg"], p["eu"], p["ed"], p.get("beg"),
+                              p.get("beu")),
+                    (("batch", "model", None, None), ep, ep, ep,
+                     ("model", None), ("model", None)))
+    eo = pctx.shard(eo, "batch", "model", None, None)
+    eo = pctx.shard(eo, "batch", None, None, None)     # gather for combine
 
-    # expert compute
-    g = qeinsum("gecd,edf->gecf", buf, p["eg"], qm, "ffn_in")
-    u = qeinsum("gecd,edf->gecf", buf, p["eu"], qm, "ffn_in")
-    if "beg" in p:  # folded-transform biases (per expert)
-        g = g + p["beg"][None, :, None, :].to(g.dtype)
-        u = u + p["beu"][None, :, None, :].to(u.dtype)
-    h = F.silu(g.float()).to(x.dtype) * u
-    eo = qeinsum("gecf,efd->gecd", h, p["ed"], qm, "ffn_down")
+    def combine(eo, idx, gate):
+        # a token's K contributions in slot order, from zero
+        gathered = torch.take_along_dim(eo.reshape(eo.shape[0], E * C, d),
+                                        idx[..., None], dim=1)
+        contrib = (gathered * gate[..., None]).reshape(-1, Tg, K, d)
+        out = torch.zeros((eo.shape[0], Tg, d), dtype=x.dtype, device=dev)
+        for k in range(K):
+            out = out + contrib[:, :, k]
+        return out
 
-    # combine: a token's K contributions in slot order, from zero
-    gathered = torch.take_along_dim(eo.reshape(G, E * C, d),
-                                    (flat_e * C + pos_c)[..., None], dim=1)
-    contrib = (gathered * (flat_p * keep)[..., None]).reshape(G, Tg, K, d)
-    out = torch.zeros((G, Tg, d), dtype=x.dtype, device=dev)
-    for k in range(K):
-        out = out + contrib[:, :, k]
+    out = pctx.local(combine, (eo, idx, gate), (grp + (None, None), grp[:2],
+                                                grp[:2]))
+    out = pctx.shard(out, "batch", None, None)
     return out.reshape(B, S, d), (lbl, zloss)
 
 

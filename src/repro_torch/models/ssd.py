@@ -29,10 +29,11 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import folding as fold_lib
-from repro_torch.core.quantize import QuantMode, qlinear
+from repro_torch.core.quantize import QuantMode
+from repro_torch.launch import pcontext as pctx
 
-from .layers import (causal_conv1d, conv1d_step, dense_init, rms_norm,
-                     rms_norm_gated, softplus)
+from .layers import (causal_conv1d, conv1d_step, dense_init, embed_lookup,
+                     qlinear, rms_norm, rms_norm_gated, softplus)
 from .transformer import _layer, head_matrix, head_out
 
 
@@ -41,42 +42,46 @@ from .transformer import _layer, head_matrix, head_out
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None):
+         device=None, place=lambda name, t: t):
     """Seeded random parameters at ``cfg``'s widths (the JAX package's
-    layout and scales; ``torch.Generator`` draws, so the values differ)."""
+    layout and scales; ``torch.Generator`` draws, so the values differ);
+    ``place`` as :func:`repro_torch.models.api.init` takes it."""
     device = gen.device if device is None else device
     L, d = cfg.n_layers, cfg.d_model
     di, H = cfg.d_inner, cfg.ssm_nheads
     G, N, K = cfg.ssm_ngroups, cfg.ssm_state, cfg.conv_kernel
     proj_out = 2 * di + 2 * G * N + H
 
-    def stack(din, dout, scale=1.0):
-        return torch.stack([dense_init(gen, din, dout, dtype, scale, device)
-                            for _ in range(L)])
+    def stack(name, din, dout, scale=1.0):
+        return place(name, torch.stack([
+            dense_init(gen, din, dout, dtype, scale, device)
+            for _ in range(L)]))
 
     dt0 = torch.linspace(1e-3, 1e-1, H, device=device)
     blocks = {
         "ln": torch.ones((L, d), dtype=dtype, device=device),
-        "in_proj": stack(d, proj_out),
-        "conv_w": (torch.randn((L, cfg.conv_dim, K), generator=gen,
-                               device=device) * 0.1).to(dtype),
+        "in_proj": stack("in_proj", d, proj_out),
+        "conv_w": place("conv_w", (torch.randn(
+            (L, cfg.conv_dim, K), generator=gen, device=device) * 0.1
+        ).to(dtype)),
         "conv_b": torch.zeros((L, cfg.conv_dim), dtype=dtype, device=device),
         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)
                            ).repeat(L, 1),
         "D": torch.ones((L, H), device=device),
         "dt_bias": torch.log(dt0 / (1 - dt0)).repeat(L, 1),
         "norm": torch.ones((L, di), dtype=dtype, device=device),
-        "out_proj": stack(di, d, 1.0 / math.sqrt(2.0 * L)),
+        "out_proj": stack("out_proj", di, d, 1.0 / math.sqrt(2.0 * L)),
     }
     params = {
         "blocks": blocks,
         "ln_f": torch.ones((d,), dtype=dtype, device=device),
-        "embed": (torch.randn((cfg.vocab_size, d), generator=gen,
-                              device=device) * 0.02).to(dtype),
+        "embed": place("embed", (torch.randn(
+            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
+        ).to(dtype)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, d, cfg.vocab_size, dtype,
-                                    device=device)
+        params["head"] = place("head", dense_init(
+            gen, d, cfg.vocab_size, dtype, device=device))
     return params
 
 
@@ -174,23 +179,36 @@ def _ssm_inputs(xBC, dt_raw, p, cfg: ArchConfig):
 def block(x, p, cfg: ArchConfig, qm: QuantMode, init_state=None):
     """x (B, L, d). Returns (x', (final ssm state (B, H, P, N) f32, conv
     tail (B, conv_dim, K-1)))."""
-    Bb, Lq, _ = x.shape
+    Lq = x.shape[1]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     zxbcdt = qlinear(h, p["in_proj"], p.get("b_in"), qm, "ssm_in")
-    z, xBC, dt_raw = _split_proj(zxbcdt, cfg)
-    conv_tail = xBC[:, -(cfg.conv_kernel - 1):, :]           # pre-conv
-    xBC = causal_conv1d(xBC, p["conv_w"], p["conv_b"])
-    xBC = F.silu(xBC.float()).to(x.dtype)
-    xh, Bh, Ch, dt, a = _ssm_inputs(xBC, dt_raw, p, cfg)
-    dA = dt * a[None, None, :]                               # (B, L, H)
-    xin = (xh.float() * dt[..., None]).to(x.dtype)
-    y, s_final = ssd_chunked(xin, dA, Bh.to(x.dtype), Ch.to(x.dtype),
-                             cfg.ssm_chunk, init_state)
-    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = rms_norm_gated(y.reshape(Bb, Lq, cfg.d_inner), z, p["norm"],
-                       cfg.norm_eps)
+
+    def mix(zxbcdt, conv_w, conv_b, dt_bias, A_log, D, norm):
+        # the conv, the SSD scan and the gated norm of each lane (under a
+        # mesh: each rank's lanes, the projection's channels whole)
+        Bb = zxbcdt.shape[0]
+        z, xBC, dt_raw = _split_proj(zxbcdt, cfg)
+        conv_tail = xBC[:, -(cfg.conv_kernel - 1):, :]       # pre-conv
+        xBC = causal_conv1d(xBC, conv_w, conv_b)
+        xBC = F.silu(xBC.float()).to(x.dtype)
+        xh, Bh, Ch, dt, a = _ssm_inputs(xBC, dt_raw, {"dt_bias": dt_bias,
+                                                      "A_log": A_log}, cfg)
+        dA = dt * a[None, None, :]                           # (B, L, H)
+        xin = (xh.float() * dt[..., None]).to(x.dtype)
+        y, s_final = ssd_chunked(xin, dA, Bh.to(x.dtype), Ch.to(x.dtype),
+                                 cfg.ssm_chunk, init_state)
+        y = y + xh * D.to(x.dtype)[None, None, :, None]
+        y = rms_norm_gated(y.reshape(Bb, Lq, cfg.d_inner), z, norm,
+                           cfg.norm_eps)
+        return y, s_final, conv_tail.transpose(1, 2)
+    lane = ("batch", None, None)
+    y, s_final, conv_tail = pctx.local(
+        mix, (zxbcdt, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+              p["D"], p["norm"]),
+        (lane, (None, None), (None,), (None,), (None,), (None,), (None,)),
+        out_like=(0, 0, 0))
     out = qlinear(y, p["out_proj"], p.get("b_out"), qm, "ssm_out")
-    return x + out.to(x.dtype), (s_final, conv_tail.transpose(1, 2))
+    return x + out.to(x.dtype), (s_final, conv_tail)
 
 
 def block_decode(x, p, cfg: ArchConfig, qm: QuantMode, ssm_state,
@@ -226,11 +244,13 @@ def forward(params, cfg: ArchConfig, inputs,
             qm: QuantMode = QuantMode.off()):
     """inputs (B, S) tokens -> logits (B, S, V); each block recomputed in
     the backward under autograd with ``cfg.remat``."""
-    x = params["embed"][inputs.long()]
+    x = pctx.shard(embed_lookup(params["embed"], inputs), "batch", None, None)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def run(x, pl):
-        return block(x, pl, cfg, qm)[0]
+        # a sequence-parallel residual is gathered at the block's entry
+        x = pctx.shard(x, "batch", None, None)
+        return pctx.shard(block(x, pl, cfg, qm)[0], "batch", "seq", None)
 
     for i in range(cfg.n_layers):
         pl = _layer(params["blocks"], i)
@@ -259,10 +279,11 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
     """Run the prompt (B, S); returns (last logits (B, V), cache). The
     state is O(1) in the length, so ``max_len`` sizes nothing."""
     del max_len, kv_quant
-    x = params["embed"][inputs.long()]
+    x = pctx.shard(embed_lookup(params["embed"], inputs), "batch", None, None)
     ss, cs = [], []
     for i in range(cfg.n_layers):
         x, (s, c) = block(x, _layer(params["blocks"], i), cfg, qm)
+        x = pctx.shard(x, "batch", "seq", None)
         ss.append(s)
         cs.append(c)
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
@@ -276,7 +297,8 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
     unused). inputs (B,) tokens. Returns (logits (B, V), cache), the cache
     updated in place."""
     del cur_len
-    x = params["embed"][inputs.long()[:, None]].to(cache["conv"].dtype)
+    x = pctx.shard(embed_lookup(params["embed"], inputs[:, None]).to(
+        cache["conv"].dtype), "batch", None, None)
     for i in range(cfg.n_layers):
         x, s, c = block_decode(x, _layer(params["blocks"], i), cfg, qm,
                                cache["ssm"][i], cache["conv"][i])

@@ -22,15 +22,19 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch import devices
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import folding as fold_lib
-from repro_torch.core.quantize import QuantMode, qlinear
+from repro_torch.core.quantize import QuantMode
 from repro_torch.kernels import ops
 from repro_torch.kernels.packing import PackedKV, PagedKV
 
+from repro_torch.launch import pcontext as pctx
+
 from .layers import (apply_rope, attention, attention_paged, dense_init,
-                     flash_attention, gated_mlp, kv_heads_view, kv_scatter_chunk_paged,
-                     kv_write_chunk_paged, kv_write_rows, kv_write_slice,
-                     kv_write_spec, kv_write_spec_paged,
-                     kv_write_token_paged, rms_norm, spec_slots)
+                     embed_lookup, flash_attention, gated_mlp, kv_heads_view,
+                     kv_pack, kv_scatter_chunk_paged, kv_write_chunk_paged,
+                     kv_write_rows, kv_write_slice, kv_write_spec,
+                     kv_write_spec_paged, kv_write_token_paged, merge_heads,
+                     qlinear, rms_norm, shard_batch, shard_kv, spec_slots,
+                     split_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -38,40 +42,43 @@ from .layers import (apply_rope, attention, attention_paged, dense_init,
 # ---------------------------------------------------------------------------
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None):
+         device=None, place=lambda name, t: t):
     """Seeded random parameters at ``cfg``'s widths (the JAX package's
-    layout and scales; ``torch.Generator`` draws, so the values differ)."""
+    layout and scales; ``torch.Generator`` draws, so the values differ);
+    ``place`` as :func:`repro_torch.models.api.init` takes it."""
     device = gen.device if device is None else device
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     qd, kd = cfg.q_dim, cfg.kv_dim
 
-    def stack(din, dout, scale=1.0):
-        return torch.stack([dense_init(gen, din, dout, dtype, scale, device)
-                            for _ in range(L)])
+    def stack(din, dout, scale=1.0, name=""):
+        return place(name, torch.stack([
+            dense_init(gen, din, dout, dtype, scale, device)
+            for _ in range(L)]))
 
     def full(shape, v):
         return torch.full(shape, v, dtype=dtype, device=device)
 
     out_scale = 1.0 / math.sqrt(2.0 * L)
-    blocks = {"ln1": full((L, d), 1.0), "wq": stack(d, qd),
-              "wk": stack(d, kd), "wv": stack(d, kd),
-              "wo": stack(qd, d, out_scale), "ln2": full((L, d), 1.0),
-              "wg": stack(d, f), "wu": stack(d, f),
-              "wd": stack(f, d, out_scale)}
+    blocks = {"ln1": full((L, d), 1.0), "wq": stack(d, qd, name="wq"),
+              "wk": stack(d, kd, name="wk"), "wv": stack(d, kd, name="wv"),
+              "wo": stack(qd, d, out_scale, "wo"), "ln2": full((L, d), 1.0),
+              "wg": stack(d, f, name="wg"), "wu": stack(d, f, name="wu"),
+              "wd": stack(f, d, out_scale, "wd")}
     if cfg.qkv_bias:
         blocks["bq"] = full((L, qd), 0.0)
         blocks["bk"] = full((L, kd), 0.0)
         blocks["bv"] = full((L, kd), 0.0)
     params = {"blocks": blocks, "ln_f": full((d,), 1.0)}
     if cfg.embed_inputs:
-        params["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
-                                       device=device) * 0.02).to(dtype)
+        params["embed"] = place("embed", (torch.randn(
+            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
+        ).to(dtype))
         if not cfg.tie_embeddings:
-            params["head"] = dense_init(gen, d, cfg.vocab_size, dtype,
-                                        device=device)
+            params["head"] = place("head", dense_init(
+                gen, d, cfg.vocab_size, dtype, device=device))
     else:
-        params["head"] = dense_init(gen, d, cfg.vocab_size, dtype,
-                                    device=device)
+        params["head"] = place("head", dense_init(
+            gen, d, cfg.vocab_size, dtype, device=device))
     return params
 
 
@@ -100,9 +107,10 @@ def _qkv(x, p, cfg: ArchConfig, qm: QuantMode, pos):
     q = qlinear(h, p["wq"], p.get("bq"), qm, "qkv")
     k = qlinear(h, p["wk"], p.get("bk"), qm, "qkv")
     v = qlinear(h, p["wv"], p.get("bv"), qm, "qkv")
-    q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.head_dim), pos,
+    q = pctx.shard(q, "batch", None, "model")
+    q = apply_rope(split_heads(q, cfg.n_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
-    kh = apply_rope(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), pos,
+    kh = apply_rope(split_heads(k, cfg.n_kv_heads, cfg.head_dim), pos,
                     cfg.rope_theta)
     return q, kh.reshape(B, S, cfg.kv_dim), v
 
@@ -114,12 +122,25 @@ def attn_sublayer(x, p, cfg: ArchConfig, qm: QuantMode, pos,
     chunk. Returns (x', k, v)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg, qm, pos)
-    out = flash_attention(q, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-                          v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-                          causal=cfg.causal, window=window,
+    kh = split_heads(k, cfg.n_kv_heads, cfg.head_dim)
+    vh = split_heads(v, cfg.n_kv_heads, cfg.head_dim)
+    repeat = cfg.attn_repeat_kv and pctx.active()
+    if repeat:
+        # under a mesh, materialize kv to H heads: every attention tensor
+        # then carries a TP-divisible head axis, so the attention stays
+        # head-sharded instead of replicated (the JAX package's §Perf
+        # layout; the repeat is exact, so the values do not move)
+        g = cfg.n_heads // cfg.n_kv_heads
+        kh = torch.repeat_interleave(kh, g, dim=2)
+        vh = torch.repeat_interleave(vh, g, dim=2)
+        q = pctx.shard(q, "batch", None, "model", None)
+        kh = pctx.shard(kh, "batch", None, "model", None)
+        vh = pctx.shard(vh, "batch", None, "model", None)
+    out = flash_attention(q, kh, vh, causal=cfg.causal, window=window,
                           chunk=cfg.attn_chunk)
-    out = qlinear(out.reshape(B, S, cfg.q_dim), p["wo"], p.get("bo"), qm,
-                  "attn_out")
+    if repeat:
+        out = pctx.shard(out, "batch", None, "model", None)
+    out = qlinear(merge_heads(out), p["wo"], p.get("bo"), qm, "attn_out")
     return x + out, k, v
 
 
@@ -147,6 +168,8 @@ def attn_sublayer_decode(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
         kv_write_slice(cache_k, k, cl)
         kv_write_slice(cache_v, v, cl)
         kv_len = pos + 1
+    cache_k = shard_kv(cache_k, "batch", None, "model")
+    cache_v = shard_kv(cache_v, "batch", None, "model")
     out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
                     kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
                     causal=True, q_pos=pos, kv_len=kv_len, window=window,
@@ -168,6 +191,8 @@ def attn_sublayer_chunk(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
     start = int(kv_len) - C
     kv_write_slice(cache_k, k, start)
     kv_write_slice(cache_v, v, start)
+    cache_k = shard_kv(cache_k, "batch", None, "model")
+    cache_v = shard_kv(cache_v, "batch", None, "model")
     out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
                     kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
                     causal=True, q_pos=pos, kv_len=kv_len, window=window,
@@ -257,6 +282,8 @@ def attn_sublayer_verify(x, p, cfg: ArchConfig, qm: QuantMode, cache_k,
     q, k, v = _qkv(x, p, cfg, qm, qpos)
     kv_write_spec(cache_k, k, slots)
     kv_write_spec(cache_v, v, slots)
+    cache_k = shard_kv(cache_k, "batch", None, "model")
+    cache_v = shard_kv(cache_v, "batch", None, "model")
     out = attention(q, kv_heads_view(cache_k, cfg.n_kv_heads, cfg.head_dim),
                     kv_heads_view(cache_v, cfg.n_kv_heads, cfg.head_dim),
                     causal=True, q_pos=qpos, kv_len=(cl + nv).to(dev),
@@ -307,11 +334,13 @@ def embed_inputs(params, cfg: ArchConfig, inputs):
     families — (..., S, d) embeddings as given, through the folded T1
     (``x @ a + v``) once PTQ has left one in ``params``."""
     if cfg.embed_inputs:
-        return params["embed"][inputs.long()]
+        return pctx.shard(embed_lookup(params["embed"], inputs), "batch", None,
+                          None)
     if "input_transform" in params:
         t = params["input_transform"]
-        return inputs @ t["a"].to(inputs.dtype) + t["v"].to(inputs.dtype)
-    return inputs
+        return pctx.shard(inputs @ t["a"].to(inputs.dtype)
+                          + t["v"].to(inputs.dtype), "batch", None, None)
+    return pctx.shard(inputs, "batch", None, None)
 
 
 def forward(params, cfg: ArchConfig, inputs,
@@ -325,8 +354,12 @@ def forward(params, cfg: ArchConfig, inputs,
     remat = cfg.remat and torch.is_grad_enabled()
 
     def block(x, p):
+        # a sequence-parallel residual (split over "seq" between blocks)
+        # is gathered at the block's entry, so the block computes on
+        # whole rows
+        x = pctx.shard(x, "batch", None, None)
         x, _, _ = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
-        return ffn(x, p, cfg, qm)
+        return pctx.shard(ffn(x, p, cfg, qm), "batch", "seq", None)
 
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
@@ -335,7 +368,7 @@ def forward(params, cfg: ArchConfig, inputs,
         else:
             x = block(x, p)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return head_out(x, params, cfg, qm)
+    return pctx.shard(head_out(x, params, cfg, qm), "batch", None, "model")
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -378,7 +411,7 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x, k, v = attn_sublayer(x, p, cfg, qm, pos, window=cfg.window)
-        x = ffn(x, p, cfg, qm)
+        x = pctx.shard(ffn(x, p, cfg, qm), "batch", "seq", None)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
@@ -389,9 +422,10 @@ def prefill(params, cfg: ArchConfig, inputs, qm: QuantMode = QuantMode.off(),
         ks = torch.cat([ks, pad], dim=2)
         vs = torch.cat([vs, pad], dim=2)
     if kv_quant is not None:
-        ks = PackedKV.from_dense(ks, kv_quant.fmt)
-        vs = PackedKV.from_dense(vs, kv_quant.fmt)
-    return logits, {"k": ks, "v": vs}
+        ks = kv_pack(ks, kv_quant.fmt, lanes=1)
+        vs = kv_pack(vs, kv_quant.fmt, lanes=1)
+    return logits, {"k": shard_kv(ks, None, "batch", None, "model"),
+                    "v": shard_kv(vs, None, "batch", None, "model")}
 
 
 def prefill_chunk(params, cfg: ArchConfig, cache, inputs, start: int,
@@ -427,6 +461,7 @@ def decode(params, cfg: ArchConfig, cache, inputs, cur_len,
         ck = cache["k"]
         x = x.to(getattr(torch, ck.dtype) if isinstance(ck, PackedKV)
                  else ck.dtype)
+    x = shard_batch(x, None, None)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         x, _, _ = attn_sublayer_decode(x, p, cfg, qm, cache["k"][i],
@@ -473,7 +508,7 @@ def decode_paged(params, cfg: ArchConfig, cache, inputs, cur_len,
     """One decode step over a paged pool. inputs (B,) tokens; cur_len (B,)
     per-lane fills; block_tables (B, maxp). Returns (logits (B, V),
     cache)."""
-    x = embed_inputs(params, cfg, inputs[:, None])
+    x = shard_batch(embed_inputs(params, cfg, inputs[:, None]), None, None)
     bt = torch.as_tensor(block_tables, device=x.device).to(torch.int32)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)

@@ -14,6 +14,12 @@ in the other:
 bfloat16 leaves are stored as the JAX package stores them (numpy has no
 bfloat16: two raw bytes a value, ``|V2``, with ``"bfloat16"`` in the
 manifest) and read back from those bytes.
+
+Storage is mesh-independent: a ``DTensor`` leaf (a tree laid out over a
+mesh) is saved whole (``full_tensor()``, a collective every rank joins;
+rank 0 writes), and ``restore(..., shardings=)`` places each leaf by
+``distribute_tensor`` — the elastic path: any mesh whose axes divide the
+dimensions reloads a checkpoint of any other, or of none.
 """
 from __future__ import annotations
 
@@ -48,6 +54,8 @@ def _paths(tree, prefix: str = ""):
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if type(leaf).__name__ == "DTensor":
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -68,15 +76,19 @@ def save(ckpt_dir, step: int, tree: Any, keep: int = 3,
     """Atomically persist ``tree`` (nested dicts, named tuples, tensors,
     ints) as checkpoint ``step``; keep the newest ``keep``."""
     root = pathlib.Path(ckpt_dir)
+    flat, dtypes = {}, {}
+    for key, leaf in _paths(tree):
+        flat[key] = _to_numpy(leaf)
+        dtypes[key] = _dtype_name(leaf, flat[key])
+    final = root / f"step_{step:08d}"
+    if _rank() != 0:                  # rank 0 writes the whole tensors
+        _barrier()
+        return final
     root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".tmp_step_{step}_{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    flat, dtypes = {}, {}
-    for key, leaf in _paths(tree):
-        flat[key] = _to_numpy(leaf)
-        dtypes[key] = _dtype_name(leaf, flat[key])
     np.savez(tmp / "arrays.npz", **flat)
     manifest = {
         "step": step,
@@ -87,12 +99,24 @@ def save(ckpt_dir, step: int, tree: Any, keep: int = 3,
         "extra": extra or {},
     }
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    final = root / f"step_{step:08d}"
     if final.exists():
         shutil.rmtree(final)
     os.replace(tmp, final)            # atomic on POSIX
     _retain(root, keep)
+    _barrier()
     return final
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _retain(root: pathlib.Path, keep: int):
@@ -138,12 +162,19 @@ def _rebuild(tree, it):
 
 
 def restore(ckpt_dir, tree_like: Any, step: Optional[int] = None,
-            device=None) -> tuple:
+            device=None, shardings: Any = None) -> tuple:
     """Load checkpoint ``step`` (default: the latest) into the structure
     of ``tree_like`` (tensors give the dtype of each leaf; ``None``
     subtrees are skipped). Leaves land on ``device`` (None: the card).
-    Returns (tree, manifest)."""
+    ``shardings`` (a matching tree of ``launch.shardings.NamedSharding``)
+    places each leaf as a DTensor by ``distribute_tensor`` as it is read,
+    from the host, so one whole leaf at most reaches the device — the
+    elastic reload. Returns (tree, manifest)."""
     dev = devices.resolve(device)
+    shards = {}
+    if shardings is not None:
+        from repro_torch.launch.shardings import distribute_leaf
+        shards, dev = dict(_paths(shardings)), torch.device("cpu")
     root = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(root)
@@ -159,6 +190,6 @@ def restore(ckpt_dir, tree_like: Any, step: Optional[int] = None,
             if list(arr.shape) != shape:
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(shape)}")
-            out.append(_from_numpy(arr, manifest["dtypes"].get(key, ""),
-                                   leaf, dev))
+            t = _from_numpy(arr, manifest["dtypes"].get(key, ""), leaf, dev)
+            out.append(distribute_leaf(t, shards[key]) if shards else t)
     return _rebuild(tree_like, iter(out)), manifest

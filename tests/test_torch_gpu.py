@@ -831,3 +831,70 @@ def test_cuda_mamba2_block_decode(cuda_device):
                                         conv.to(dev)))
     for a, b in zip(out[1], out[0]):
         _close(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_serve_step_under_a_mesh(cuda_device, tmp_path):
+    """Phase 11 (c) at a reduced size: a packed RTN mxfp4 tree (T3, fused,
+    mxfp8 cache) through ``make_prefill_step`` and 8 ``make_serve_step``
+    steps, without a mesh and under a one-rank (1, 1) NCCL mesh: tokens
+    equal, and every kernel launch under the mesh through the replicated
+    route (``ops.on_whole``), as many as without it."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.artifacts.store import pack_params
+    from repro_torch.core import ptq
+    from repro_torch.core.quantize import KVCacheQuant
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pcontext as pctx
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    dev = cuda_device
+    cfg = configs.get_reduced("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = ptq.apply_method("rtn", transformer.init(gen, cfg, device=dev),
+                           cfg, fmt="mxfp4")
+    qm = dataclasses.replace(res.qm, t3_block=32, backend="fused")
+    params = pack_params(res)
+    S, n = 40, 8
+    inp = torch.randint(0, cfg.vocab_size, (4, S), generator=gen,
+                        device=dev)
+    prefill = steps.make_prefill_step(cfg, qm, max_len=S + n + 1,
+                                      kv_quant=KVCacheQuant.parse("mxfp8"))
+    serve = steps.make_serve_step(cfg, qm)
+
+    def run(params, inputs, place):
+        tops.reset_launches()
+        tok, cache = prefill(params, inputs)
+        cache = place(cache)
+        toks = [tok]
+        for i in range(n):
+            tok, cache = serve(params, cache, tok, S + i)
+            toks.append(tok)
+        toks = [t.full_tensor() if pctx.is_dtensor(t) else t for t in toks]
+        return torch.stack(toks), dict(tops.launches), dict(tops.quant_paths)
+
+    want, launches, _ = run(params, inp, lambda c: c)
+    mesh_lib.init_distributed(store=dist.FileStore(str(tmp_path / "s"), 1),
+                              world_size=1, rank=0, device="cuda")
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        with pctx.activate(mesh, batch_axes=("data",), model_axis="model"):
+            got, mesh_launches, paths = run(
+                sh.distribute(params, sh.params_shardings(params, cfg,
+                                                          "serve", mesh)),
+                sh.distribute_leaf(inp, sh.NamedSharding(
+                    mesh, sh.Spec("data", None))),
+                lambda c: sh.distribute(c, sh.cache_shardings(c, cfg, 4,
+                                                              mesh)))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    for k in ("mx_gemm_packed", "mx_flash_decode"):
+        assert mesh_launches[k] == launches[k] > 0
+        assert paths[(k, "replicated", "")] == launches[k]

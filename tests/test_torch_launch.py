@@ -19,6 +19,7 @@ from repro.artifacts import verify_artifact as j_verify
 from repro.launch import serve as jserve
 from repro.serving.engine import Engine as JEngine
 from repro_torch.artifacts import cli as tcli
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.serving.engine import Engine as TEngine
@@ -84,9 +85,11 @@ def test_export_from_the_checkpoint_verifies_in_both(ckpt_dir, tmp_path):
 
 
 def test_entry_points_default_to_the_card(tmp_path):
-    """No --device: the card, or an error where there is none; the
-    distributed flags belong to the parallel layouts (Queue 1 item 6)."""
-    with pytest.raises(SystemExit, match="item 6"):
+    """No --device: the card, or an error where there is none;
+    --distributed without a group's address (torchrun's environment or
+    --coordinator) is refused before anything starts, and the process
+    group's helper takes the CPU only when asked for it."""
+    with pytest.raises(SystemExit, match="--coordinator host:port"):
         ttrain.main([*ARCH, "--reduced", "--distributed", "--device", "cpu",
                      "--ckpt-dir", str(tmp_path / "d")])
     if torch.cuda.is_available():
@@ -96,4 +99,8 @@ def test_entry_points_default_to_the_card(tmp_path):
                      str(tmp_path / "c")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main([*ARCH, "--method", "rtn"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_lib.init_distributed(store=torch.distributed.HashStore(),
+                                  world_size=1, rank=0)
+    assert not torch.distributed.is_initialized()
     assert not (tmp_path / "c").exists()
