@@ -57,8 +57,9 @@ Phases, in order (each raises on failure; nothing is caught):
    and a trace that validates (:func:`http_server_phase`); the paged
    kernels' launch counts in the ``kernels`` line are this phase's;
 7. the LATMiX PTQ pipeline (:func:`ptq_phase`): ``apply_method
-   ('latmix-lu', mxfp4, GPTQ)`` on Qwen2-0.5B at its published widths
-   (random weights, the artifact CLI's calibration), timed by stage; the
+   ('latmix-lu', mxfp4, GPTQ)`` on Qwen2-0.5B at its published widths,
+   its depth cut to PTQ_LAYERS of 24 (random weights, the artifact CLI's
+   calibration), timed by stage; the
    fold in FP under an orthogonal and under the learned set; GPTQ on the
    grid and below RTN's error on the captured Hessians; lu and qr for 2
    steps on the card against the CPU at 2 layers; the artifact exported,
@@ -126,7 +127,16 @@ Phases, in order (each raises on failure; nothing is caught):
    launch under the mesh through the replicated route (``ops.on_whole``),
    as many as without it
    (``launches_by_path`` ``parallel``); (d) the port's dry run of (a)'s
-   cell on the fake backend, its predicted peak against (a)'s.
+   cell on the fake backend, its predicted peak against (a)'s;
+12. Mamba2's sharded dry run, the examples, the paper's experiments and
+   the CI smokes (:func:`paper_phase`): (a) Mamba2-130M's ``train_4k``
+   dry-run cell (reduced widths, one layer, the published vocab) on both
+   fake meshes; (b) ``repro_torch.examples.serve`` on phase 3's artifact
+   (paged, fused), two runs with ``reset_stats()`` between, the window
+   against the counters (``launches_by_path`` ``examples``); (c) Fig. 2
+   at B = 32, Table 3 at steps 0 and 1 and Table 1's fp, rtn, gptq and
+   latmix-lu rows on the bench model, the card against the CPU; (d)
+   ``repro_torch.scripts.chaos_smoke`` and ``server_smoke`` on the card.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -879,67 +889,77 @@ def serve(torch, Engine, Request, art, prompts, cfg, tag="", **kw):
     return eng, reqs, launches, st
 
 
-def end_to_end(torch, dev, seed: int):
+def qwen2_artifact(torch, dev, seed: int, art: pathlib.Path):
+    """Phase 3's artifact, exported to ``art``: Qwen2-0.5B at its
+    published widths, random weights from ``seed``, RTN mxfp4 with the T3
+    rotation. Returns the config."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.artifacts import export_artifact
     from repro_torch.core import ptq
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.serving.engine import Engine, Request
 
     cfg = configs.get("qwen2-0.5b")
-    L = cfg.n_layers
-    gemms_per_forward = 7 * L      # q, k, v, o, gate, up, down per layer
     gen = torch.Generator(device=dev).manual_seed(seed)
-    t0 = time.perf_counter()
     params = transformer.init(gen, cfg, device=dev)
     res = ptq.apply_method("rtn", params, cfg, fmt="mxfp4")
     # random weights carry no folded T3 inverse; the rotation still runs,
     # so the ffn_down prologue of the GEMM kernel is on the path
     res.qm = dataclasses.replace(res.qm, t3_block=32)
     del params
+    export_artifact(res, cfg, art)
+    torch.cuda.synchronize()
+    return cfg
+
+
+def end_to_end(torch, dev, seed: int, art: pathlib.Path):
+    """Phase 3 on the artifact :func:`qwen2_artifact` exports to ``art``
+    (kept for phase 12 (b))."""
+    from repro_torch.artifacts import load_artifact
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    cfg = qwen2_artifact(torch, dev, seed, art)
+    L = cfg.n_layers
+    gemms_per_forward = 7 * L      # q, k, v, o, gate, up, down per layer
     prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        art = pathlib.Path(tmp) / "qwen2-0.5b-mxfp4"
-        export_artifact(res, cfg, art)
-        del res
-        torch.cuda.synchronize()
-        log(f"e2e: init + RTN + export {time.perf_counter() - t0:.1f} s "
-            f"({L} layers)")
-        params, _, qm = load_artifact(art, device=dev)
-        common = dict(batch_size=4, max_len=2048, kv_cache="mxfp8",
-                      device=dev)
+    log(f"e2e: init + RTN + export {time.perf_counter() - t0:.1f} s "
+        f"({L} layers)")
+    params, _, qm = load_artifact(art, device=dev)
+    common = dict(batch_size=4, max_len=2048, kv_cache="mxfp8",
+                  device=dev)
 
-        # the engine's default path: wave scheduler, contiguous cache
-        eng, rw, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
-                               scheduler="wave", kv_layout="contiguous",
-                               **common)
-        check_contiguous_launches(lw, st, L, gemms_per_forward,
-                                  1 + st["decode_steps"], "wave")
-        launches["wave"] = lw
-        profile_serving(torch, eng, Request, cfg, seed, "wave/contiguous")
-        decode_step_split(torch, transformer, params, cfg,
-                          qm.with_backend("fused"), eng.kv_quant, dev, seed)
-        prefill_step_split(torch, transformer, params, cfg,
-                           qm.with_backend("fused"), eng.kv_quant, dev, seed)
-        del eng
+    # the engine's default path: wave scheduler, contiguous cache
+    eng, rw, lw, st = serve(torch, Engine, Request, art, prompts, cfg,
+                           scheduler="wave", kv_layout="contiguous",
+                           **common)
+    check_contiguous_launches(lw, st, L, gemms_per_forward,
+                              1 + st["decode_steps"], "wave")
+    launches["wave"] = lw
+    profile_serving(torch, eng, Request, cfg, seed, "wave/contiguous")
+    decode_step_split(torch, transformer, params, cfg,
+                      qm.with_backend("fused"), eng.kv_quant, dev, seed)
+    prefill_step_split(torch, transformer, params, cfg,
+                       qm.with_backend("fused"), eng.kv_quant, dev, seed)
+    del eng
 
-        eng, rc, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
-                               scheduler="continuous",
-                               kv_layout="contiguous", **common)
-        check_contiguous_launches(
-            lc, st, L, gemms_per_forward,
-            st["prefill_chunk_steps"] + st["decode_steps"], "continuous")
-        launches["continuous"] = lc
-        del eng
+    eng, rc, lc, st = serve(torch, Engine, Request, art, prompts, cfg,
+                           scheduler="continuous",
+                           kv_layout="contiguous", **common)
+    check_contiguous_launches(
+        lc, st, L, gemms_per_forward,
+        st["prefill_chunk_steps"] + st["decode_steps"], "continuous")
+    launches["continuous"] = lc
+    del eng
 
-        kw = dict(scheduler="continuous", kv_layout="paged", **common)
-        eng, reqs, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
-                                  **kw)
-        launches["paged"] = lp
+    kw = dict(scheduler="continuous", kv_layout="paged", **common)
+    eng, reqs, lp, st = serve(torch, Engine, Request, art, prompts, cfg,
+                              **kw)
+    launches["paged"] = lp
     check_paged_run(eng, lp, st, L, "")
     profile_serving(torch, eng, Request, cfg, seed, "continuous/paged")
 
@@ -1920,6 +1940,7 @@ def http_server_phase(torch, dev, seed, card, served, sampled_ref):
 # ---------------------------------------------------------------------------
 
 PTQ_STEPS = 120          # (a)'s steps: apply_method's default
+PTQ_LAYERS = 6           # depth of (a), (b), (c), (e): a quarter of 24
 PTQ_CALIB = (3, 8, 64)   # the artifact CLI's calibration: batches, B, S
 CARD_CPU_LAYERS = 2      # (d): Qwen2-0.5B's widths at this depth
 FOLD_BAR = 1e-4          # (b): share of max |logit|, orthogonal set
@@ -2137,11 +2158,11 @@ def card_against_cpu(torch, dev, seed, configs, transformer, api, latmix,
     return out
 
 
-def ptq_phase(torch, dev, seed: int, card: str):
+def ptq_phase(torch, dev, seed: int, card: str, layers: int = PTQ_LAYERS):
     """Phase 7: the LATMiX PTQ pipeline on Qwen2-0.5B at its published
-    widths (random weights from the seed), calibrated on the port's
-    ``SyntheticLM`` at the artifact CLI's defaults, then its artifact
-    served through the kernels. (a) ``apply_method('latmix-lu', mxfp4,
+    widths, ``layers`` deep (random weights from the seed), calibrated on
+    the port's ``SyntheticLM`` at the artifact CLI's defaults, then its
+    artifact served through the kernels. (a) ``apply_method('latmix-lu', mxfp4,
     steps=PTQ_STEPS, weight_quant='gptq')`` with the wall time of each
     stage; the task loss falls and the Fig. 3 metrics are finite; (b) the
     fold in FP (:func:`fold_exactness`); (c) GPTQ against RTN
@@ -2151,7 +2172,8 @@ def ptq_phase(torch, dev, seed: int, card: str):
     on phase 3's four prompts with the launch counts zeroed just before
     and read just after, the first prefill and one decode step held call
     by call against the plain versions, and the greedy tokens against the
-    reference backend's. Returns the launch counts of (e)."""
+    reference backend's. (b), (c) and (e) act on (a)'s result, so they
+    run at (a)'s depth. Returns the launch counts of (e)."""
     from repro_torch import configs
     from repro_torch.artifacts import export_artifact, verify_artifact
     from repro_torch.core import folding, gptq, latmix, ptq
@@ -2161,9 +2183,11 @@ def ptq_phase(torch, dev, seed: int, card: str):
     from repro_torch.models import api, transformer
     from repro_torch.serving.engine import Engine, Request
 
+    import dataclasses
+
     t_phase = time.perf_counter()
     log(f"phase 7 on {card}")
-    cfg = configs.get("qwen2-0.5b")
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"), n_layers=layers)
     gen = torch.Generator(device=dev).manual_seed(seed + 19)
     params = transformer.init(gen, cfg, device=dev)
     n, B, S = PTQ_CALIB
@@ -2211,17 +2235,20 @@ def ptq_phase(torch, dev, seed: int, card: str):
             raise AssertionError("phase 7 (a): a transform metric is not "
                                  "finite")
 
+        t_a = time.perf_counter() - t_phase
         # (b)
         x = torch.as_tensor(calib[0]["inputs"], device=dev).long()
         fold_exactness(torch, api, tfm, folding, QuantMode, params, cfg,
                        res.tset, x, card)
         del params
+        t_b = time.perf_counter() - t_phase
 
         # (c)
         gargs = clock.calls["quantize_weights_gptq"][0]
         gptq_checks(torch, gptq, ptq._mx_cfg("mxfp4"), gargs[0], gargs[2],
                     res.params, card)
         del gargs, clock, res
+        t_c = time.perf_counter() - t_phase
 
         # (e) the artifact served
         rep = verify_artifact(art)
@@ -2243,11 +2270,15 @@ def ptq_phase(torch, dev, seed: int, card: str):
         log(f"phase 7 (e) paged greedy tokens fused == ref: {agree}/"
             f"{sum(len(r.out) for r in reqs)}")
         del eng, ref_eng
+    t_e = time.perf_counter() - t_phase
 
     # (d)
     card_against_cpu(torch, dev, seed, configs, transformer, api, latmix,
                      calib, card)
-    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s wall on {card}")
+    t_d = time.perf_counter() - t_phase
+    log(f"phase 7 at {layers} layers: {t_d:.1f} s wall on {card} "
+        f"(cumulative: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (e) "
+        f"{t_e:.1f}, (d) {t_d:.1f})")
     return lp
 
 
@@ -3710,11 +3741,257 @@ def parallel_phase(torch, dev, seed, card):
     return {"parallel": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Mamba2's sharded dry run, the examples, the paper's experiments
+# and the CI smokes
+# ---------------------------------------------------------------------------
+
+PAPER_BAR = 1e-4         # (c): relative, card against CPU, fixed values
+PAPER_LEARN = {"fig2": 25, "table1": 10}   # (c)'s learned rows' steps
+PROXY_QUESTIONS = 3 * 16 * 4   # the zero-shot proxy: batches x B x places
+EXAMPLES_NEW = 8         # (b): --new, the longest request's tokens (default 24)
+
+
+def ssm_dryrun_gate(card):
+    """(a) ``dryrun.run_counted`` of Mamba2-130M's ``train_4k`` cell at the
+    reduced widths, one layer deep, with the published vocab (50280, which
+    the model axis of 16 does not divide, so the tied table is split over
+    "data" only: the layout whose two gradients torch 2.11 could not sum;
+    the tied table is outside the layers) and the full config's remat, on
+    both fake meshes; each must be ``ok``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+
+    full = configs.get("mamba2-130m")
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-130m"), n_layers=1,
+                              vocab_size=full.vocab_size, remat=full.remat)
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        rec = dryrun.run_counted(cfg, SHAPES["train_4k"], multi_pod)
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 12 (a): {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        log(f"phase 12 (a) mamba2 train_4k (reduced widths, 1 layer, vocab "
+            f"{cfg.vocab_size}) on {rec['n_devices']} fake ranks: ok, peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB a rank, "
+            f"{time.perf_counter() - t0:.1f} s on the host of {card}")
+
+
+def examples_serve_gate(torch, dev, card, art):
+    """(b) ``repro_torch.examples.serve`` over phase 3's artifact
+    (continuous scheduler, paged, mxfp8 KV cache, fused, ``--new
+    EXAMPLES_NEW``), its scripted run
+    twice with ``reset_stats()`` between, the launch counts zeroed just
+    before and read just after: the window equals the second run's deltas
+    of the flat counters, which equal the sum of both runs; every request
+    finishes; kernels 1-3 launch. Returns the launch counts."""
+    from repro_torch.examples import serve as ex
+    from repro_torch.kernels import ops
+
+    args = ex.parse_args(["--artifact", str(art), "--kv-layout", "paged",
+                          "--kv-cache", "mxfp8", "--new", str(EXAMPLES_NEW),
+                          "--device", dev.type])
+    eng = ex.build_engine(args)
+    keys = type(eng)._WINDOW_KEYS
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ex.run(eng, args)
+    first = eng.stats()
+    eng.reset_stats()
+    ex.run(eng, args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    end = eng.stats()
+    window = {k: end["window"][k] for k in keys}
+    if {k: first["window"][k] for k in keys} != {k: first[k] for k in keys}:
+        raise AssertionError(f"phase 12 (b): the first window {first}")
+    if window != {k: end[k] - first[k] for k in keys}:
+        raise AssertionError(f"phase 12 (b): window {window}, counters "
+                             f"{first} then {end}")
+    if any(end[k] != first[k] + window[k] for k in keys):
+        raise AssertionError("phase 12 (b): the flat counters are not the "
+                             "sum of both runs")
+    if end["terminal"]["finished"] != end["submitted"]:
+        raise AssertionError(f"phase 12 (b): {end['terminal']}")
+    if not window["decode_steps"] or not window["prefix_hit_tokens"]:
+        raise AssertionError(f"phase 12 (b): window {window}")
+    for k in PAGED_KERNELS:
+        if not launches.get(k):
+            raise AssertionError(f"phase 12 (b): {k} never launched")
+    log(f"phase 12 (b) examples.serve, two runs, reset_stats between: "
+        f"window {json.dumps(end['window'])}; flat "
+        f"{json.dumps({k: end[k] for k in keys})}; launches {launches}; "
+        f"{dt:.1f} s on {card}")
+    return launches
+
+
+def _paper_values(torch, dev, card_res=None):
+    """(c)'s values on ``dev``: Fig. 2 at B = 32 (the fixed transforms, the
+    fixed profiles, the learned transform at PAPER_LEARN steps), Table 3
+    at steps 0 and 1, and Table 1's fp, rtn, gptq and latmix-lu rows at
+    mxfp4 (PAPER_LEARN steps); with ``card_res``, the card's latmix-lu
+    result evaluated here too (``latmix-lu_card_model``). Returns the
+    values and this device's latmix-lu result."""
+    import dataclasses
+
+    from repro_torch import devices
+    from repro_torch.core import ptq
+    from repro_torch.models import api
+    from repro_torch.paper import (common, fig2_mse, table1_methods,
+                                   table3_invariance)
+
+    params, cfg = common.get_model(log=lambda *_: None, device=dev)
+    x = fig2_mse.capture_activations(params, cfg,
+                                     common.eval_batches(cfg, n=2))
+    out = {f"fig2a_mse_B32_{k}": v
+           for k, v in fig2_mse.fixed_mse(x, 32).items()}
+    out.update({f"fig2c_{k}": v
+                for k, v in fig2_mse.fixed_profiles(x, 32).items()})
+    a, v = fig2_mse.learn_affine_mse(x, 32, steps=PAPER_LEARN["fig2"])
+    out["fig2a_mse_B32_learned_affine"] = fig2_mse.mse(x, 32, a, v)
+    pn = api.fold_norms(params, cfg)
+    calib = common.calib_batches(cfg, device=dev)
+    ev = common.eval_tokens(cfg, device=dev)
+    for n in (0, 1):
+        out[f"table3_steps{n}"] = table3_invariance.fused_ppl(pn, cfg, calib,
+                                                              ev, n)
+    evb = common.eval_batches(cfg)
+    teacher = table1_methods.teacher_logits(params, cfg, evb)
+    for m in ("fp", "rtn", "gptq"):
+        ppl, acc, _ = table1_methods.method_row(
+            m, params, cfg, calib, ev, evb, teacher, "mxfp4")
+        out[f"table1_mxfp4_{m}"], out[f"table1_mxfp4_{m}_acc"] = ppl, acc
+    # latmix-lu as method_row runs it, with its transform-learning losses
+    res = ptq.apply_method("latmix-lu", params, cfg, calib, fmt="mxfp4",
+                           steps=PAPER_LEARN["table1"])
+    out["table1_mxfp4_latmix-lu"] = ptq.eval_ppl(res, cfg, ev)
+    out["table1_mxfp4_latmix-lu_acc"] = ptq.zero_shot_proxy(
+        res, cfg, evb, teacher_logits=teacher)
+    out["latmix-lu_loss0"], out["latmix-lu_loss1"] = (
+        res.history[0]["loss"], res.history[1]["loss"])
+    if card_res is not None:
+        held = dataclasses.replace(
+            card_res, params=devices.tree_to(card_res.params, dev))
+        out["latmix-lu_card_model"] = ptq.eval_ppl(held, cfg, ev)
+        out["latmix-lu_card_model_acc"] = ptq.zero_shot_proxy(
+            held, cfg, evb, teacher_logits=teacher)
+    return out, res
+
+
+def paper_gate(torch, dev, card):
+    """(c) the paper's experiments at reduced steps on the bench model, on
+    the card and, in this process, on the CPU from the same checkpoint and
+    data: the fixed transforms, Table 3 at step 0 and the fp, rtn and gptq
+    rows within PAPER_BAR relative, their proxy accuracy equal; the
+    learned rows — the learned transform, Table 3 at step 1 and
+    latmix-lu's perplexity after GPTQ within TRAJ_BARS[1], its first and
+    second transform-learning losses within TRAJ_BARS (after the first
+    Adam update the devices part as two runs on inputs an ulp apart do:
+    ``matrix_exp`` and the MX snaps; ROADMAP "Decided"), its proxy
+    accuracy within one binomial standard error of the CPU's (the CPU's
+    own runs part by 3 of the PROXY_QUESTIONS answers: near-ties flip as
+    the learned ppl moves). The card's quantized latmix-lu model itself,
+    evaluated on the CPU: its perplexity within PAPER_BAR of the card's
+    and its proxy answers equal. On the card alone, whatever the CPU
+    gives: latmix-lu's perplexity is below gptq's, the same GPTQ after 10
+    steps of learned transforms (a learning that did nothing past its
+    first step would sit at gptq's, about 3% above)."""
+    import os
+
+    here = os.getcwd()
+    os.chdir(ROOT)                 # experiments/bench_model
+    try:
+        t0 = time.perf_counter()
+        got, card_res = _paper_values(torch, dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        want, _ = _paper_values(torch, torch.device("cpu"), card_res)
+        t_cpu = time.perf_counter() - t0 - t_card
+    finally:
+        os.chdir(here)
+    learned = ("fig2a_mse_B32_learned_affine", "table3_steps1",
+               "latmix-lu_loss1", "table1_mxfp4_latmix-lu")
+    bars = {"latmix-lu_loss0": TRAJ_BARS[0]}
+    # the card's latmix-lu model on the CPU: the card's own evaluation
+    for k in ("latmix-lu_card_model", "latmix-lu_card_model_acc"):
+        got[k] = got[k.replace("latmix-lu_card_model",
+                               "table1_mxfp4_latmix-lu")]
+    rel, bad = {}, {}
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        rel[k] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        if k.endswith("_acc"):
+            # a share of PROXY_QUESTIONS answers: equal for the fixed rows
+            # and for the card's model on both devices; one binomial
+            # standard error for the learned row learned on each device
+            bar = (float(np.sqrt(w * (1 - w) / PROXY_QUESTIONS))
+                   if k[:-4] in learned else 0.0)
+            if abs(float(g) - float(w)) > bar:
+                bad[k] = (float(g), float(w), bar)
+        elif rel[k] > bars.get(k, TRAJ_BARS[1] if k in learned
+                               else PAPER_BAR):
+            bad[k] = rel[k]
+    if not got["table1_mxfp4_latmix-lu"] < got["table1_mxfp4_gptq"]:
+        bad["latmix-lu below gptq on the card"] = (
+            got["table1_mxfp4_latmix-lu"], got["table1_mxfp4_gptq"])
+    log("phase 12 (c) paper rows, card: " + json.dumps(
+        {k: v for k, v in got.items() if not k.startswith("fig2c_")}))
+    log("phase 12 (c) relative distance card against CPU: "
+        + json.dumps(rel) + f" ({t_card:.1f} s card, {t_cpu:.1f} s CPU, "
+        f"{card})")
+    if bad:
+        raise AssertionError(f"phase 12 (c): past the bars: {bad}")
+
+
+def smokes_gate(dev, card):
+    """(d) the CI smokes with the card as the device, each exiting 0."""
+    from repro_torch.scripts import chaos_smoke, server_smoke
+
+    for name, main in (("chaos_smoke", chaos_smoke.main),
+                       ("server_smoke", server_smoke.main)):
+        t0 = time.perf_counter()
+        rc = main(["--device", dev.type])
+        if rc != 0:
+            raise AssertionError(f"phase 12 (d): {name} exited {rc}")
+        log(f"phase 12 (d) {name}: exit 0, {time.perf_counter() - t0:.1f} s "
+            f"on {card}")
+
+
+def paper_phase(torch, dev, card, art):
+    """Phase 12: (a) :func:`ssm_dryrun_gate`, (b) :func:`examples_serve_gate`
+    on phase 3's artifact ``art``, (c) :func:`paper_gate`, (d)
+    :func:`smokes_gate`. Returns {"examples": (b)'s launch counts}."""
+    t_phase = time.perf_counter()
+    log(f"phase 12 on {card}")
+    ssm_dryrun_gate(card)
+    t_a = time.perf_counter() - t_phase
+    launches = examples_serve_gate(torch, dev, card, art)
+    t_b = time.perf_counter() - t_phase
+    paper_gate(torch, dev, card)
+    t_c = time.perf_counter() - t_phase
+    smokes_gate(dev, card)
+    t_d = time.perf_counter() - t_phase
+    log(f"phase 12: {t_d:.1f} s wall on {card} (cumulative: (a) {t_a:.1f}, "
+        f"(b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f})")
+    return {"examples": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, the kernels' inputs and the "
                          "requests")
+    ap.add_argument("--phase7-depths", default="", metavar="L,L,...",
+                    help="time only phase 7, once at each of these depths "
+                         "in this order (the kernels built first), print "
+                         "its seconds at each as JSON and exit: what "
+                         "cutting PTQ_LAYERS saves")
     args = ap.parse_args(argv)
 
     import torch
@@ -3739,6 +4016,17 @@ def main(argv=None) -> int:
     def clock(what):
         log(f"{what} done at {time.perf_counter() - t_script:.1f} s of the "
             f"script on {card}")
+    if args.phase7_depths:
+        seconds = []
+        for layers in map(int, args.phase7_depths.split(",")):
+            t0 = time.perf_counter()
+            ptq_phase(torch, dev, args.seed, card, layers)
+            torch.cuda.synchronize()
+            seconds.append([layers, time.perf_counter() - t0])
+            torch.cuda.empty_cache()
+        print(json.dumps({"phase7_seconds": seconds, "card": card}),
+              flush=True)
+        return 0
     gemm_entries = check_gemm(torch, dev, gen)
     verify_gemm_times(torch, dev, args.seed)
     t0 = time.perf_counter()
@@ -3756,7 +4044,9 @@ def main(argv=None) -> int:
                *check_quantizers(torch, dev, gen),
                check_unpacked_gemm(torch, dev, gen)]
     clock("phase 2")
-    launches, served = end_to_end(torch, dev, args.seed)
+    work = tempfile.TemporaryDirectory()        # phase 3's artifact
+    art = pathlib.Path(work.name) / "qwen2-0.5b-mxfp4"
+    launches, served = end_to_end(torch, dev, args.seed, art)
     clock("phase 3")
     launches["standalone"] = standalone_path(torch, dev, served["params"])
     clock("phase 4")
@@ -3779,6 +4069,9 @@ def main(argv=None) -> int:
     clock("phase 10")
     launches.update(parallel_phase(torch, dev, args.seed, card))
     clock("phase 11")
+    launches.update(paper_phase(torch, dev, card, art))
+    work.cleanup()
+    clock("phase 12")
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

@@ -85,7 +85,12 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 def head_matrix(params, cfg: ArchConfig):
     if "head" in params:
         return params["head"]
-    return params["embed"].T  # tied
+    # tied: the head's gradient goes back laid out as the table, so the
+    # two gradients of the table add in one layout (with the vocab not
+    # split, as at Mamba2-130M's 50280 over 16, torch 2.11 summed the
+    # head's partial sum and the lookup's FSDP shard by asking for a
+    # shard -> partial redistribute, which it does not have)
+    return pctx.grad_like(params["embed"]).T
 
 
 def head_out(x, params, cfg: ArchConfig, qm: QuantMode):

@@ -101,6 +101,12 @@ SCHEDULERS = ("wave", "continuous")
 KV_LAYOUTS = ("contiguous", "paged")
 
 
+def default_page_size(attn_chunk: int) -> int:
+    """The paged layout's page when none is given: the smallest multiple
+    of the attention chunk that holds 64 tokens."""
+    return attn_chunk * max(1, -(-64 // attn_chunk))
+
+
 class BlockAllocator:
     """Ref-counted allocator over the paged KV pool's page ids.
 
@@ -334,11 +340,14 @@ class Engine:
     drain; :meth:`cancel`, :meth:`fail_lane` and :meth:`requeue_lane` end
     or requeue a request wherever it is."""
 
-    _RUN_KEYS = ("admitted", "decode_steps", "slot_steps",
-                 "useful_decode_tokens", "prefill_chunk_steps",
-                 "prefill_batched_steps", "prefill_lane_steps",
-                 "prefix_hit_tokens", "blocks_evicted",
-                 "spec_proposed_tokens", "spec_accepted_tokens")
+    # the counters reset_stats() windows (the JAX engine's; it keeps its
+    # compile counters out of the window, and this engine compiles
+    # nothing)
+    _WINDOW_KEYS = ("admitted", "decode_steps", "slot_steps",
+                    "useful_decode_tokens", "prefill_chunk_steps",
+                    "prefill_batched_steps", "prefill_lane_steps",
+                    "prefix_hit_tokens", "blocks_evicted",
+                    "spec_proposed_tokens", "spec_accepted_tokens")
 
     def __init__(self, params, cfg: ArchConfig, qm: QuantMode,
                  batch_size: int = 4, max_len: int = 256,
@@ -435,7 +444,7 @@ class Engine:
         self._alloc: Optional[BlockAllocator] = None
         if kv_layout == "paged":
             if page_size is None:
-                page_size = chunk * max(1, -(-64 // chunk))
+                page_size = default_page_size(chunk)
             if page_size % 32 != 0:
                 raise ValueError(f"page_size must be a multiple of the MX "
                                  f"32-block, got {page_size}")
@@ -558,6 +567,7 @@ class Engine:
             "serving_spec_accepted_total", unit="tokens",
             help="proposed draft tokens accepted by the verify step")
         self._evicted_seen = 0
+        self._window_base = {k: 0 for k in self._WINDOW_KEYS}
 
         self._queue = RequestQueue(max_depth=self.policy.max_queue_depth)
         self._shed_streak = 0      # consecutive sheds -> Retry-After
@@ -1929,6 +1939,23 @@ class Engine:
         return (c["spec_accepted_tokens"] / c["spec_proposed_tokens"]
                 if c["spec_proposed_tokens"] else 0.0)
 
+    @classmethod
+    def _window(cls, c: dict) -> dict:
+        """The windowed counters of ``c`` with the window's decode
+        utilization and spec acceptance."""
+        w = {k: c[k] for k in cls._WINDOW_KEYS}
+        w["decode_utilization"] = (w["useful_decode_tokens"]
+                                   / w["slot_steps"] if w["slot_steps"]
+                                   else 0.0)
+        w["spec_acceptance"] = cls._acceptance(w)
+        return w
+
+    def reset_stats(self) -> None:
+        """Start a new stats window: ``stats()['window']`` counts from
+        here. Not reset: the flat (cumulative) counters, the latency
+        histograms and the gauges."""
+        self._window_base = self._counter_values()
+
     @staticmethod
     def _quantiles(h) -> dict:
         if h.count == 0:
@@ -1940,9 +1967,11 @@ class Engine:
         utilization, TTFT / TPOT quantiles in seconds, and the lifecycle
         keys: ``submitted``, ``terminal`` (counts by terminal state; they
         sum to ``submitted`` at quiescence), ``preemptions``,
-        ``nan_guard_trips``, ``rejected_never_fit`` — the JAX engine's
-        keys for the parts this engine has (it compiles nothing, so no
-        compile counters, and keeps no stats window)."""
+        ``nan_guard_trips``, ``rejected_never_fit``, and ``window``: the
+        windowed counters since the last :meth:`reset_stats`, with their
+        decode utilization and spec acceptance — the JAX engine's keys
+        for the parts this engine has (it compiles nothing, so it has no
+        compile counters, in the flat keys or in the window)."""
         cum = self._counter_values()
         ttft = self._quantiles(self._h_ttft)
         tpot = self._quantiles(self._h_tpot)
@@ -1966,7 +1995,10 @@ class Engine:
                              for s, c in self._c_terminal.items()},
                 "preemptions": int(self._c_preempt.value),
                 "nan_guard_trips": int(self._c_nan.value),
-                "rejected_never_fit": int(self._c_never_fit.value)}
+                "rejected_never_fit": int(self._c_never_fit.value),
+                "window": self._window(
+                    {k: cum[k] - self._window_base[k]
+                     for k in self._WINDOW_KEYS})}
 
     @staticmethod
     def _cache_bytes(cache) -> int:
@@ -1997,9 +2029,10 @@ class Engine:
                    max_new: int = 32, seed: int = 0,
                    sampling: Optional[SamplingParams] = None) -> dict:
         """Tokens/second over a synthetic request wave, plus the schedule
-        counters of this run. ``sampling`` (None: greedy) applies to every
-        request, request i with seed ``sampling.seed + i``. Host clock
-        around work that ends in a device sync (the token fetch)."""
+        counters of this run (``window`` too: the same per-run values).
+        ``sampling`` (None: greedy) applies to every request, request i
+        with seed ``sampling.seed + i``. Host clock around work that ends
+        in a device sync (the token fetch)."""
         rng = np.random.default_rng(seed)
         reqs = [Request(prompt=rng.integers(
             0, self.cfg.vocab_size, prompt_len).astype(np.int32),
@@ -2015,11 +2048,10 @@ class Engine:
         dt = time.perf_counter() - t0
         toks = sum(len(r.out) for r in done)
         run = self.stats()
-        for k in self._RUN_KEYS:
+        for k in self._WINDOW_KEYS:
             run[k] -= before[k]
-        run["decode_utilization"] = (
-            run["useful_decode_tokens"] / run["slot_steps"]
-            if run["slot_steps"] else 0.0)
-        run["spec_acceptance"] = self._acceptance(run)
+        run["window"] = self._window(run)
+        run["decode_utilization"] = run["window"]["decode_utilization"]
+        run["spec_acceptance"] = run["window"]["spec_acceptance"]
         return {"tokens": toks, "seconds": dt,
                 "tok_per_s": toks / dt if dt > 0 else float("inf"), **run}

@@ -9,6 +9,7 @@ result (or its error) to ``DIR/result_CASE.json``. The inputs the test
 made from a numpy seed arrive as ``DIR/params_TAG.npz`` and
 ``DIR/batch_TAG.npz``, TAG one of :data:`CONFIGS`' keys.
 """
+import dataclasses
 import json
 import pathlib
 import sys
@@ -42,7 +43,11 @@ def _reduced(arch):
 CONFIGS = {"dense": lambda: DENSE,
            "moe": lambda: _reduced("qwen2-moe-a2.7b"),
            "hybrid": lambda: _reduced("recurrentgemma-2b"),
-           "ssm": lambda: _reduced("mamba2-130m")}
+           "ssm": lambda: _reduced("mamba2-130m"),
+           # a vocab the model axis does not divide: the tied table is
+           # split over "data" only, as Mamba2-130M's 50280 over 16
+           "ssm_odd": lambda: dataclasses.replace(_reduced("mamba2-130m"),
+                                                  vocab_size=511)}
 
 
 def _np_tree(path):
@@ -196,6 +201,10 @@ def case_serve_mx(mesh, rank, d):
 
 def case_train_moe(mesh, rank, d):
     return _train("moe", mesh, rank, d)
+
+
+def case_train_ssm(mesh, rank, d):
+    return _train("ssm_odd", mesh, rank, d)
 
 
 def case_serve_fused(mesh, rank, d):

@@ -7,8 +7,8 @@ case's result. Inputs are made here from a numpy seed.
 
 Bars (the JAX test's and ROADMAP's "MX ties"): sharded training equals
 unsharded within 1e-4 (loss) and 5e-3 (params), for dense (accum 2,
-sequence parallel over "model") and for the MoE with its experts over
-"model"; the dense loss also equals the JAX package's unsharded step on
+sequence parallel over "model"), for the MoE with its experts over
+"model" and for Mamba2 with a tied table split over "data" only; the dense loss also equals the JAX package's unsharded step on
 the same params within 1e-4. Sharded serving gives the unsharded tokens
 (dense, quantization off; Griffin and Mamba2; a packed RTN tree on the
 fused backend, whose kernel calls all take the replicated route), and
@@ -28,7 +28,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 HELPER = REPO / "tests" / "_torch_dist_cases.py"
-CASES = ("train", "train_moe", "serve", "serve_mx", "serve_fused",
+CASES = ("train", "train_moe", "train_ssm", "serve", "serve_mx", "serve_fused",
          "serve_hybrid", "serve_ssm", "elastic", "init_memory")
 
 
@@ -114,6 +114,17 @@ def test_sharded_training_equals_unsharded(group):
     assert res["placements_kept"]
     # FSDP over data x TP over model: a column weight is split both ways
     assert res["layouts"]["blocks/wq"] == ["S1", "S2"]
+
+
+def test_sharded_ssm_training_equals_unsharded(group):
+    """Mamba2 (reduced, the vocab odd so the tied table is split over
+    "data" only) under the same bars as the dense case: the head's and the
+    lookup's gradients of the table sum in the table's layout."""
+    res = group["train_ssm"]
+    assert res["dl"] < 1e-4 and res["dp"] < 5e-3, res
+    assert res["dg_rel"] < 1e-4, res["dg_rel"]
+    assert res["placements_kept"]
+    assert res["layouts"]["embed"] == ["S1", "R"]
 
 
 def test_sharded_training_equals_the_jax_step(group):

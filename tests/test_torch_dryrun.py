@@ -142,6 +142,54 @@ def test_counts_follow_the_shards(kind):
     assert abs(rec["flops_per_device"] - g.flops) <= 0.01 * g.flops
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_ssm_train_backward_never_asks_shard_to_partial(multi_pod,
+                                                        monkeypatch):
+    """Mamba2's ``train_4k`` cell, reduced, with a vocab that the model
+    axis does not divide (as 50280 over 16: the tied table is split over
+    "data" only), on the fake mesh. Every redistribute DTensor performs
+    is recorded, and every op whose inputs it lays out. None goes from a
+    shard to ``Partial``; and no op meets one input split on a mesh axis
+    and another partial there — the choice torch 2.11's pointwise rule
+    settles by following the first input, a shard -> partial redistribute
+    it does not have (the card host's failure; torch 2.13 reduce-scatters
+    the partial instead, so only the meeting shows here)."""
+    from torch.distributed.tensor import _api, _dispatch, _redistribute
+    moves, mixed = [], []
+    to_local = _redistribute.redistribute_local_tensor
+
+    def record(local, cur, tgt, **kw):
+        moves.append((cur.placements, tgt.placements))
+        return to_local(local, cur, tgt, **kw)
+
+    relayout = _dispatch.OpDispatcher.redistribute_local_args
+
+    def inputs(op_info, suggested, *a, **k):
+        specs = [s for s in op_info.flat_args_schema
+                 if hasattr(s, "placements")]
+        for m in range(specs[0].mesh.ndim if specs else 0):
+            if (any(s.placements[m].is_shard() for s in specs)
+                    and any(s.placements[m].is_partial() for s in specs)):
+                mixed.append((str(op_info.schema.op),
+                              [s.placements for s in specs]))
+        return relayout(op_info, suggested, *a, **k)
+
+    for mod in (_redistribute, _dispatch, _api):
+        monkeypatch.setattr(mod, "redistribute_local_tensor", record)
+    monkeypatch.setattr(_dispatch.OpDispatcher, "redistribute_local_args",
+                        staticmethod(inputs))
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-130m"),
+                              n_layers=1, remat=True, vocab_size=520)
+    rec = dr.run_counted(cfg, ShapeConfig("t_train", 64, 32, "train"),
+                         multi_pod)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert moves
+    assert not [(c, t) for c, t in moves
+                if any(p.is_shard() and q.is_partial()
+                       for p, q in zip(c, t))]
+    assert not mixed, mixed
+
+
 def _jax_roofline():
     """The JAX package's roofline module, imported without letting its
     512-host-device XLA flag reach this process's later JAX use."""
