@@ -136,7 +136,19 @@ Phases, in order (each raises on failure; nothing is caught):
    against the counters (``launches_by_path`` ``examples``); (c) Fig. 2
    at B = 32, Table 3 at steps 0 and 1 and Table 1's fp, rtn, gptq and
    latmix-lu rows on the bench model, the card against the CPU; (d)
-   ``repro_torch.scripts.chaos_smoke`` and ``server_smoke`` on the card.
+   ``repro_torch.scripts.chaos_smoke`` and ``server_smoke`` on the card;
+13. the last parity gaps (:func:`parity_phase`): (a) phase 3's paged
+   engine over its artifact, 4 requests x INSTR_NEW tokens, once plain and
+   once under ``ops.instrument``: the same tokens, the dispatch counts
+   equal to the launches, ``quant_dispatch_total`` equal to
+   ``ops.quant_paths``, one ``dispatch:<op>`` span per call; (b) RTN
+   mxint4 at Qwen2-0.5B's widths, MXINT4_LAYERS of 24, paged, fused
+   against the reference backend (the tokens on the dense pool, the
+   per-call check on the mxfp8 pool); (c) ``QuantMode.nvfp4()`` under the
+   fused backend, every linear ``ref``, the card against the CPU; (d)
+   stochastic MX rounding, the card against the CPU under one key; (e)
+   ``launch.serve --artifact --eager --metrics`` in this process
+   (``launches_by_path`` ``instrumented``, ``mxint4``, ``eager``).
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3982,6 +3994,340 @@ def paper_phase(torch, dev, card, art):
     return {"examples": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: dispatch instrumentation, mxint4 and NVFP4, stochastic MX
+# rounding, launch.serve --eager
+# ---------------------------------------------------------------------------
+
+INSTR_NEW = 8            # (a): new tokens a request
+MXINT4_LAYERS = 6        # (b): of Qwen2-0.5B's 24
+MXINT4_PREFIX = 128      # (b): prompt tokens of the logits comparison
+TIE_BAR = 1e-2           # (b): fused against reference, of max |logit|
+NVFP4_LAYERS = 2         # (c): of Qwen2-0.5B's 24
+NVFP4_TOKENS = (1, 16)   # (c): one prompt of 16 tokens
+NVFP4_BAR = 1e-4         # (c): card against CPU, of max |logit|
+STOCH_SHAPE = (64, 4864)  # (d): rows x Qwen2-0.5B's d_ff
+
+
+def _metric_values(registry, name: str) -> dict:
+    """{tuple of label values in key order: value} of one metric."""
+    return {tuple(m.labels.values()): m.value for m in registry
+            if m.name == name}
+
+
+def instrumented_serve_gate(torch, dev, seed, card, art):
+    """(a) phase 3's paged engine over its artifact, 4 requests x
+    INSTR_NEW greedy tokens, once uninstrumented and once under
+    ``ops.instrument(registry, tracer)``: the same tokens; per op, the
+    dispatch count (``traced="false"``) equal to the run's launches; the
+    ``quant_dispatch_total`` counts equal to ``ops.quant_paths``; dispatch
+    seconds above 0; one ``dispatch:<op>`` span per call. Returns the
+    instrumented run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.engine import Engine, Request
+
+    prompts = traffic(np.random.default_rng(seed),
+                      configs.get("qwen2-0.5b").vocab_size)
+
+    def run(registry, tracer):
+        eng = Engine.from_artifact(
+            art, backend="fused", batch_size=4, max_len=2048,
+            kv_cache="mxfp8", scheduler="continuous", kv_layout="paged",
+            metrics=registry, tracer=tracer, device=dev)
+        reqs = [Request(prompt=p, max_new=INSTR_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        if registry is not None:
+            ops.instrument(registry, tracer)
+        t0 = time.perf_counter()
+        try:
+            _run(torch, eng, reqs)
+        finally:
+            ops.uninstrument()
+        dt = time.perf_counter() - t0
+        return ([r.out for r in reqs], dict(ops.launches),
+                dict(ops.quant_paths), dt)
+
+    plain, _, _, t_plain = run(None, None)
+    registry, tracer = MetricsRegistry(), Tracer()
+    toks, launches, paths, t_instr = run(registry, tracer)
+    log(f"phase 13 (a) paged run, 4 x {INSTR_NEW} tokens: {t_plain:.3f} s "
+        f"uninstrumented, {t_instr:.3f} s instrumented, on {card}")
+    if any(not np.array_equal(a, b) for a, b in zip(toks, plain)):
+        raise AssertionError("phase 13 (a): the instrumented run's tokens "
+                             "differ from the uninstrumented run's")
+    calls = _metric_values(registry, "kernel_dispatch_calls_total")
+    secs = _metric_values(registry, "kernel_dispatch_seconds_total")
+    want = {(op, "false"): float(n) for op, n in launches.items() if n}
+    if calls != want:
+        raise AssertionError(f"phase 13 (a): dispatch calls {calls}, "
+                             f"launches {launches}")
+    if set(secs) != set(want) or not all(v > 0 for v in secs.values()):
+        raise AssertionError(f"phase 13 (a): dispatch seconds {secs}")
+    quant = _metric_values(registry, "quant_dispatch_total")
+    if quant != {k: float(n) for k, n in paths.items()}:
+        raise AssertionError(f"phase 13 (a): quant_dispatch_total {quant}, "
+                             f"quant_paths {paths}")
+    spans = collections.Counter(
+        e["name"][len("dispatch:"):] for e in tracer.events()
+        if e["name"].startswith("dispatch:"))
+    if spans != collections.Counter({op: n for op, n in launches.items()
+                                     if n}):
+        raise AssertionError(f"phase 13 (a): dispatch spans {spans}")
+    for k in PAGED_KERNELS:
+        if not launches.get(k):
+            raise AssertionError(f"phase 13 (a): {k} never launched")
+    log(f"phase 13 (a) dispatch seconds (host): " + json.dumps(
+        {op: secs[(op, "false")] for op, _ in want}) + f"; calls "
+        f"{json.dumps({op: n for (op, _), n in calls.items()})}; quant "
+        f"paths {len(paths)}")
+    return launches
+
+
+def mxint4_gate(torch, dev, seed, card, root):
+    """(b) RTN mxint4 (T3 on) of Qwen2-0.5B's widths at MXINT4_LAYERS of
+    24, exported and loaded, served continuous/paged, 4 requests x
+    INSTR_NEW greedy tokens, with the fused and with the reference
+    backend, on the mxfp8 pool and on the dense pool. Held: the fused runs
+    launch the packed GEMM (and, on the mxfp8 pool, the paged attention
+    kernels); every kernel call of a prefill and a decode step equals its
+    plain version (phase 3's per-call check, with its cosine bar on the
+    prefill logits against the reference backend); on the dense pool, where
+    both backends attend through the same plain attention, the greedy
+    tokens equal the reference backend's and the forward's logits of the
+    prompts' first MXINT4_PREFIX tokens are within TIE_BAR of max |logit|
+    (the bars for MX ties). On the mxfp8 pool the fused tokens part from
+    the reference backend's: the attention kernels sum in another order
+    (1e-5 apart), which flips activation codes at MX midpoints, and the
+    flips compound through random layers (phase 3's finding); the
+    agreement is logged. Returns the fused mxfp8 run's launch counts."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.artifacts import export_artifact, load_artifact
+    from repro_torch.core import ptq
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"),
+                              n_layers=MXINT4_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = ptq.apply_method("rtn", transformer.init(gen, cfg, device=dev),
+                           cfg, fmt="mxint4")
+    res.qm = dataclasses.replace(res.qm, t3_block=32)
+    art = root / "qwen2-0.5b-mxint4"
+    export_artifact(res, cfg, art)
+    del res
+    params, cfg, qm = load_artifact(art, device=dev)
+    if qm.act_cfg.fmt != "mxint4":
+        raise AssertionError(f"phase 13 (b): the artifact's mode {qm}")
+    prompts = traffic(np.random.default_rng(seed), cfg.vocab_size)
+    toks, launches = {}, {}
+    for kv in ("mxfp8", "none"):
+        for backend in ("fused", "ref"):
+            eng = Engine(params, cfg, qm, backend=backend, batch_size=4,
+                         max_len=2048, kv_cache=kv, scheduler="continuous",
+                         kv_layout="paged", device=dev)
+            reqs = [Request(prompt=p, max_new=INSTR_NEW) for p in prompts]
+            ops.reset_launches()
+            _run(torch, eng, reqs)
+            toks[kv, backend] = [r.out for r in reqs]
+            launches[kv, backend] = dict(ops.launches)
+            if (kv, backend) == ("mxfp8", "fused"):
+                paged_teacher_forced(torch, transformer, params, cfg, qm,
+                                     eng, prompts[0], dev, " mxint4")
+            del eng
+    if (any(launches[kv, "ref"]["mx_gemm_packed"] for kv in ("mxfp8",
+                                                             "none"))
+            or not launches["none", "fused"]["mx_gemm_packed"]
+            or not all(launches["mxfp8", "fused"][k]
+                       for k in PAGED_KERNELS)):
+        raise AssertionError(f"phase 13 (b): launches {launches}")
+    same = {kv: [np.array_equal(a, b) for a, b in zip(toks[kv, "fused"],
+                                                      toks[kv, "ref"])]
+            for kv in ("mxfp8", "none")}
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(toks["mxfp8", "fused"], toks["mxfp8", "ref"])]
+    tokens = torch.as_tensor(np.stack([p[:MXINT4_PREFIX] for p in prompts]),
+                             device=dev).long()
+    with torch.no_grad():
+        lf = api.forward(params, cfg, tokens, qm.with_backend("fused"))
+        lr = api.forward(params, cfg, tokens, qm.with_backend("ref"))
+    err = ((lf - lr).abs().max() / lr.abs().max()).item()
+    log(f"phase 13 (b) mxint4 at {MXINT4_LAYERS} layers, paged: fused "
+        f"launches {launches['mxfp8', 'fused']} (mxfp8 pool), "
+        f"{launches['none', 'fused']} (dense pool); greedy tokens fused == "
+        f"ref per request: dense pool {same['none']}, mxfp8 pool "
+        f"{same['mxfp8']} (first divergence {first}); forward logits fused "
+        f"against ref {err:.3e} of max |logit| (bar {TIE_BAR}); "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    if not all(same["none"]) or not err <= TIE_BAR:
+        raise AssertionError("phase 13 (b): fused mxint4 parts from the "
+                             "reference backend past the bars")
+    return launches["mxfp8", "fused"]
+
+
+def nvfp4_gate(torch, dev, seed, card):
+    """(c) ``QuantMode.nvfp4()`` under ``backend="fused"`` on the card at
+    Qwen2-0.5B's widths, NVFP4_LAYERS deep (random dense weights): every
+    linear routes ``ref`` in ``quant_paths`` and in
+    ``quant_dispatch_total``, no packed GEMM launches, and the logits
+    within NVFP4_BAR of max |logit| of the CPU's on the same weights."""
+    import dataclasses
+
+    from repro_torch import configs, devices
+    from repro_torch.core.quantize import QuantMode
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    from repro_torch.obs import MetricsRegistry
+
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"),
+                              n_layers=NVFP4_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = transformer.init(gen, cfg, device=dev)
+    qm = QuantMode.nvfp4().with_backend("fused")
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, NVFP4_TOKENS)).long()
+    registry = MetricsRegistry()
+    ops.reset_launches()
+    ops.instrument(registry)
+    try:
+        with torch.no_grad():
+            card_logits = api.forward(params, cfg, tokens.to(dev), qm).cpu()
+    finally:
+        ops.uninstrument()
+    paths, launches = dict(ops.quant_paths), dict(ops.launches)
+    quant = _metric_values(registry, "quant_dispatch_total")
+    with torch.no_grad():
+        cpu_logits = api.forward(devices.tree_to(params, torch.device("cpu")),
+                                 cfg, tokens, qm)
+    err = ((card_logits - cpu_logits).abs().max()
+           / cpu_logits.abs().max()).item()
+    log(f"phase 13 (c) nvfp4, fused backend, {NVFP4_LAYERS} layers: quant "
+        f"paths {json.dumps({'/'.join(k): n for k, n in paths.items()})}; "
+        f"launches {launches}; logits card against CPU {err:.3e} of max "
+        f"|logit| (bar {NVFP4_BAR}) on {card}")
+    if not paths or {k[1] for k in paths} != {"ref"}:
+        raise AssertionError(f"phase 13 (c): quant paths {paths}")
+    if quant != {k: float(n) for k, n in paths.items()}:
+        raise AssertionError(f"phase 13 (c): quant_dispatch_total {quant}")
+    if launches["mx_gemm_packed"]:
+        raise AssertionError(f"phase 13 (c): packed GEMM launches "
+                             f"{launches}")
+    if not err <= NVFP4_BAR:
+        raise AssertionError("phase 13 (c): NVFP4 logits on the card part "
+                             "from the CPU's past the bar")
+
+
+def stochastic_gate(torch, dev, seed, card):
+    """(d) stochastic ``mx.quantize`` for mxfp4 and NVFP4, the card against
+    the CPU under one key: the threefry uniforms bitwise equal, the
+    rounded values equal (the division and the compare are IEEE on both
+    sides); the count of differing values is printed."""
+    import dataclasses
+
+    from repro_torch.core import mx, prng
+
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(STOCH_SHAPE, generator=g)
+         * torch.exp2(torch.randint(-4, 5, (STOCH_SHAPE[0], 1),
+                                    generator=g).float()))
+    key = prng.prng_key(seed + 1)
+    u_cpu = prng.uniform(key, STOCH_SHAPE)
+    u_card = prng.uniform(prng.prng_key(seed + 1, device=dev), STOCH_SHAPE)
+    if not torch.equal(u_card.cpu(), u_cpu):
+        raise AssertionError("phase 13 (d): threefry uniforms differ")
+    diff = {}
+    for name, cfg in (("mxfp4", mx.MXConfig("mxfp4", stochastic=True)),
+                      ("nvfp4", dataclasses.replace(mx.NVFP4,
+                                                    stochastic=True))):
+        q_cpu = mx.quantize(x, cfg, key=key)
+        q_card = mx.quantize(x.to(dev), cfg, key=key).cpu()
+        nearest = mx.quantize(x, dataclasses.replace(cfg, stochastic=False))
+        diff[name] = int((q_card != q_cpu).sum())
+        moved = int((q_cpu != nearest).sum())
+        if not moved:
+            raise AssertionError(f"phase 13 (d): {name} never left the "
+                                 f"nearest grid point")
+    log(f"phase 13 (d) stochastic rounding {STOCH_SHAPE}, card against "
+        f"CPU: uniforms bitwise equal; differing values {diff} on {card}")
+    if any(diff.values()):
+        raise AssertionError(f"phase 13 (d): stochastic rounding differs "
+                             f"between the card and the CPU: {diff}")
+
+
+def launch_eager_gate(torch, dev, card, art):
+    """(e) ``launch.serve.main([--artifact, --eager, --metrics])`` in this
+    process on the card: exit 0; every linear routes ``ref`` (the weights
+    are dense after an eager load), in ``quant_paths`` and in the printed
+    ``quant_dispatch_total``; no packed GEMM launched or dispatched; the
+    wrappers uninstrumented afterwards. Returns the run's launch counts."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(["--artifact", str(art), "--eager",
+                                "--metrics", "--requests", "4",
+                                "--prompt-len", "32", "--max-new",
+                                str(INSTR_NEW), "--device", dev.type])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    res = json.loads(text.strip().splitlines()[-1])
+    paths, launches = dict(ops.quant_paths), dict(ops.launches)
+    log(f"phase 13 (e) launch.serve --eager --metrics: exit {rc}, "
+        f"{res['tokens']} tokens, quant paths "
+        f"{json.dumps({'/'.join(k): n for k, n in paths.items()})}, "
+        f"launches {launches}, {dt:.1f} s on {card}")
+    if rc != 0 or ops._instr is not None:
+        raise AssertionError(f"phase 13 (e): exit {rc}, instrumentation "
+                             f"left on: {ops._instr is not None}")
+    if not paths or {k[1] for k in paths} != {"ref"}:
+        raise AssertionError(f"phase 13 (e): quant paths {paths}")
+    if ('path="fused"' in text or 'path="ref"' not in text
+            or 'op="mx_gemm_packed"' in text or launches["mx_gemm_packed"]):
+        raise AssertionError("phase 13 (e): a packed GEMM ran on the eager "
+                             "weights")
+    return launches
+
+
+def parity_phase(torch, dev, seed, card, art):
+    """Phase 13: (a) :func:`instrumented_serve_gate` and (e)
+    :func:`launch_eager_gate` on phase 3's artifact ``art``, (b)
+    :func:`mxint4_gate`, (c) :func:`nvfp4_gate`, (d)
+    :func:`stochastic_gate`. Returns {"instrumented": (a)'s, "mxint4":
+    (b)'s, "eager": (e)'s launch counts}."""
+    t_phase = time.perf_counter()
+    log(f"phase 13 on {card}")
+    out = {"instrumented": instrumented_serve_gate(torch, dev, seed, card,
+                                                   art)}
+    t_a = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as root:
+        out["mxint4"] = mxint4_gate(torch, dev, seed, card,
+                                    pathlib.Path(root))
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t_phase
+    nvfp4_gate(torch, dev, seed, card)
+    t_c = time.perf_counter() - t_phase
+    stochastic_gate(torch, dev, seed, card)
+    t_d = time.perf_counter() - t_phase
+    out["eager"] = launch_eager_gate(torch, dev, card, art)
+    t_e = time.perf_counter() - t_phase
+    log(f"phase 13: {t_e:.1f} s wall on {card} (cumulative: (a) {t_a:.1f}, "
+        f"(b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, (e) {t_e:.1f})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4070,8 +4416,10 @@ def main(argv=None) -> int:
     launches.update(parallel_phase(torch, dev, args.seed, card))
     clock("phase 11")
     launches.update(paper_phase(torch, dev, card, art))
-    work.cleanup()
     clock("phase 12")
+    launches.update(parity_phase(torch, dev, args.seed, card, art))
+    work.cleanup()
+    clock("phase 13")
     # each kernel's launches on the path that carries it: the HTTP server
     # over the paged engine (phase 6) for the paged path's kernels, the
     # wave run for the contiguous decode, the standalone entry points

@@ -14,7 +14,11 @@ first, which lands one exponent higher for amax just below a power of two
 
 Snap: ``searchsorted(mids, |z|, right=True)`` — a magnitude equal to a
 midpoint goes to the larger grid value (the ``>=`` compares of the Pallas
-tile) — and the sign comes from ``z < 0``.
+tile) — and the sign comes from ``z < 0``. With ``MXConfig(stochastic=True)``
+and a key, :func:`quantize` rounds each element to one of its two bracketing
+grid points instead, the upper one with probability equal to its distance
+from the lower one over the spacing; the uniforms are ``jax.random``'s
+threefry draws (``core/prng.py``), so a key gives the JAX package's codes.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from . import prng
 
 # FP4 E2M1 positive grid per OCP MX spec: max exponent r_max = 2, max = 6.0
 _FP4_POS = np.array([0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0], dtype=np.float64)
@@ -113,6 +119,21 @@ def _snap_to_grid(x: torch.Tensor, grid) -> torch.Tensor:
     return torch.sign(x) * g[idx]
 
 
+def _snap_stochastic(x: torch.Tensor, grid, key: tuple) -> torch.Tensor:
+    """Stochastic rounding between the two bracketing grid points, with
+    the uniforms of ``jax.random.uniform(key, x.shape, x.dtype)``."""
+    g = torch.as_tensor(np.asarray(grid), dtype=x.dtype, device=x.device)
+    mag = torch.clamp(x.abs(), 0.0, g[-1])
+    hi_idx = torch.searchsorted(g, mag.contiguous()).clamp(0, len(g) - 1)
+    lo_idx = (hi_idx - 1).clamp(0, len(g) - 1)
+    lo, hi = g[lo_idx], g[hi_idx]
+    span = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+    p_hi = (mag - lo) / span
+    key = tuple(k.to(x.device) for k in key)
+    u = prng.uniform(key, x.shape, dtype=x.dtype)
+    return torch.sign(x) * torch.where(u < p_hi, hi, lo)
+
+
 def block_exponent(amax: torch.Tensor) -> torch.Tensor:
     """Exact ``floor(log2(amax))`` as int32 (amax > 0), from the float bits."""
     _, e = torch.frexp(amax.float())
@@ -137,13 +158,17 @@ def compute_scales(x: torch.Tensor, cfg: MXConfig) -> torch.Tensor:
     raise ValueError(f"unknown scale_mode {cfg.scale_mode}")
 
 
-def _quantize_value(x: torch.Tensor, cfg: MXConfig) -> torch.Tensor:
+def _quantize_value(x: torch.Tensor, cfg: MXConfig,
+                    key: tuple | None = None) -> torch.Tensor:
     B = cfg.block_size
     *lead, d = x.shape
     scales = compute_scales(x, cfg)
     xb = x.reshape(*lead, d // B, B)
     z = xb / scales[..., None].to(x.dtype)
-    q = _snap_to_grid(z, cfg.element.grid)
+    if cfg.stochastic and key is not None:
+        q = _snap_stochastic(z, cfg.element.grid, key)
+    else:
+        q = _snap_to_grid(z, cfg.element.grid)
     return (q * scales[..., None].to(x.dtype)).reshape(*lead, d)
 
 
@@ -161,12 +186,17 @@ class _QuantizeSTE(torch.autograd.Function):
 
 
 def quantize(x: torch.Tensor, cfg: MXConfig | None = None, *,
-             ste: bool = True) -> torch.Tensor:
+             ste: bool = True, key: tuple | None = None) -> torch.Tensor:
     """MX fake-quantize ``x`` along its last axis (values land exactly on
     the element grid times the block scale). With ``ste`` the gradient
     passes straight through; otherwise none flows (the snap's derivative
-    is zero almost everywhere)."""
+    is zero almost everywhere). With ``cfg.stochastic`` and a ``key`` (a
+    ``prng.prng_key``) the rounding is stochastic and, as in the JAX
+    package, takes no straight-through gradient; without a key it rounds
+    to nearest."""
     cfg = cfg or MXConfig()
+    if cfg.stochastic and key is not None:
+        return _quantize_value(x, cfg, key)
     if ste and torch.is_grad_enabled() and x.requires_grad:
         return _QuantizeSTE.apply(x, cfg)
     return _quantize_value(x, cfg)

@@ -101,26 +101,41 @@ def random_bits(key: tuple, shape=None) -> torch.Tensor:
     return y0 ^ y1
 
 
+# float dtype -> (bits of the draw, mantissa bits, the integer view of 1.0,
+# the integer type of that view): as ``jax.random``, a dtype of fewer than
+# 8 mantissa bits draws 8 bits
+_FLOAT_BITS = {torch.float32: (32, 23, 0x3F800000, torch.int32),
+               torch.bfloat16: (8, 7, 0x3F80, torch.int16),
+               torch.float16: (16, 10, 0x3C00, torch.int16)}
+
+
 def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
-                      maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` on [minval, maxval) in float32 from its bits:
-    the top 23 bits as the mantissa of a float in [1, 2), minus 1, scaled
-    by ``maxval - minval`` (rounded to float32), shifted, and clamped below
-    at minval."""
-    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-         - 1.0)
+                      maxval: float = 1.0,
+                      dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` on [minval, maxval) in ``dtype`` (float32,
+    bfloat16 or float16) from its 32-bit draw: the draw cut to its low 16
+    or 8 bits where jax draws fewer, its top mantissa-many bits as the
+    mantissa of a float in [1, 2), minus 1, scaled by ``maxval - minval``
+    (rounded to the dtype), shifted, and clamped below at minval."""
+    if dtype not in _FLOAT_BITS:
+        raise TypeError(f"uniform takes float32, bfloat16 or float16, "
+                        f"got {dtype}")
+    nbits, nmant, one, itype = _FLOAT_BITS[dtype]
+    if nbits < 32:
+        bits = bits & ((1 << nbits) - 1)
+    f = ((bits >> (nbits - nmant)) | one).to(itype).view(dtype) - 1.0
     if minval == 0.0 and maxval == 1.0:
         return f
-    scale = float(np.float32(maxval) - np.float32(minval))
-    lo = float(np.float32(minval))
-    return torch.clamp_min(f * scale + lo, lo)
+    lo = torch.tensor(minval, dtype=dtype)
+    scale = (torch.tensor(maxval, dtype=dtype) - lo).item()
+    return torch.clamp_min(f * scale + lo.item(), lo.item())
 
 
 def uniform(key: tuple, shape=None, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``; one
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``; one
     draw per key when ``shape`` is None."""
-    return uniform_from_bits(random_bits(key, shape), minval, maxval)
+    return uniform_from_bits(random_bits(key, shape), minval, maxval, dtype)
 
 
 def bernoulli(key: tuple, p: float = 0.5, shape=None) -> torch.Tensor:

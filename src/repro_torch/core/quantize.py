@@ -88,6 +88,24 @@ class QuantMode:
                          weight_cfg=c if weights else None,
                          t3_block=32 if t3 else 0, backend=backend)
 
+    @staticmethod
+    def mxint4(weights: bool = True, t3: bool = True,
+               backend: str = "ref") -> "QuantMode":
+        c = mxlib.MXConfig(fmt="mxint4", block_size=32)
+        return QuantMode(enabled=True, act_cfg=c,
+                         weight_cfg=c if weights else None,
+                         t3_block=32 if t3 else 0, backend=backend)
+
+    @staticmethod
+    def nvfp4(weights: bool = True, t3: bool = True) -> "QuantMode":
+        """NVFP4 (16-blocks, FP8 E4M3 scales) on both operands; off the
+        packed kernel's contract, so every linear takes the reference
+        path under either backend."""
+        c = mxlib.NVFP4
+        return QuantMode(enabled=True, act_cfg=c,
+                         weight_cfg=c if weights else None,
+                         t3_block=32 if t3 else 0)
+
 
 def _maybe_quant_act(x, qm: QuantMode):
     if qm.enabled and qm.act_cfg is not None:

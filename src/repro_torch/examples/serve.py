@@ -40,7 +40,8 @@ from repro_torch.artifacts import load_artifact
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ptq
 from repro_torch.core.quantize import QuantMode
-from repro_torch.launch.serve import _obs_finish
+from repro_torch.kernels import ops
+from repro_torch.launch.serve import _obs_export
 from repro_torch.models import api
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.engine import Engine, Request, default_page_size
@@ -97,8 +98,8 @@ def parse_args(argv=None):
                     help="export a Chrome trace of the run — open in "
                          "https://ui.perfetto.dev")
     ap.add_argument("--metrics", action="store_true",
-                    help="print the Prometheus metrics snapshot, with the "
-                         "kernel launch counts, at exit")
+                    help="record the kernel-dispatch metrics and print the "
+                         "Prometheus metrics snapshot at exit")
     ap.add_argument("--http", default="", metavar="HOST:PORT",
                     help="serve over HTTP/SSE instead of the scripted "
                          "demo (SIGTERM drains; examples/client.py "
@@ -140,8 +141,14 @@ def build_engine(args) -> Engine:
     """The engine the flags ask for: over ``--artifact``, or over the demo
     model quantized as ``--quant`` / ``--latmix`` say. Packed weights and
     a quantized KV cache take the fused backend: the CUDA kernels on the
-    card, their plain versions on the CPU."""
+    card, their plain versions on the CPU. With ``--metrics`` the kernel
+    wrappers are instrumented (``ops.instrument``) into the engine's
+    registry before anything runs; :func:`main` uninstruments them."""
     dev = devices.resolve(args.device)
+    tracer = Tracer() if args.trace else None
+    metrics = MetricsRegistry() if args.metrics else None
+    if metrics is not None:          # kernel-dispatch hooks (kernels/ops.py)
+        ops.instrument(metrics, tracer)
     if args.artifact:
         params, cfg, qm = load_artifact(args.artifact, eager=args.eager,
                                         device=dev)
@@ -170,25 +177,27 @@ def build_engine(args) -> Engine:
     return Engine(params, cfg, qm, batch_size=args.batch,
                   max_len=demo_max_len(cfg, args), backend="fused",
                   scheduler=args.scheduler, kv_cache=args.kv_cache,
-                  kv_layout=args.kv_layout,
-                  metrics=MetricsRegistry() if args.metrics else None,
-                  tracer=Tracer() if args.trace else None,
+                  kv_layout=args.kv_layout, metrics=metrics, tracer=tracer,
                   policy=args.policy, spec=args.spec, device=dev)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    eng = build_engine(args)
-    if args.http:
-        from repro_torch.serving.server import ServerConfig, serve
-        host, _, port = args.http.rpartition(":")
-        report = serve(eng, ServerConfig(host=host or "127.0.0.1",
-                                         port=int(port or 8100)))
-        print("drain report: " + json.dumps(report), flush=True)
-        return 0 if report["clean"] else 1
-    run(eng, args)
-    _obs_finish(eng, args)
-    return 0
+    try:
+        eng = build_engine(args)
+        if args.http:
+            from repro_torch.serving.server import ServerConfig, serve
+            host, _, port = args.http.rpartition(":")
+            report = serve(eng, ServerConfig(host=host or "127.0.0.1",
+                                             port=int(port or 8100)))
+            print("drain report: " + json.dumps(report), flush=True)
+            return 0 if report["clean"] else 1
+        run(eng, args)
+        _obs_export(eng, args)
+        return 0
+    finally:
+        if args.metrics:
+            ops.uninstrument()
 
 
 def run(eng, args) -> dict:

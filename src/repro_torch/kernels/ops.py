@@ -11,16 +11,35 @@ package.
 ``launches`` counts, per wrapper, the calls that launched the CUDA kernel
 (plain-version calls are not counted); :func:`reset_launches` zeroes it.
 
+Dispatch instrumentation, as in the JAX package (``docs/observability.md``):
+after :func:`instrument`, every public wrapper records its calls and their
+cumulative host-side dispatch time into an ``obs.MetricsRegistry``
+(``kernel_dispatch_calls_total`` / ``kernel_dispatch_seconds_total``,
+labeled by ``op`` and ``traced``), with a ``dispatch:<op>`` span (cat
+``kernel``) per call when a tracer is given, and the fused-or-reference
+decisions of ``core.quantize`` land in ``quant_dispatch_total{op, path,
+role}``. In the JAX package ``traced="true"`` marks a call made inside an
+enclosing ``jax.jit`` trace, which runs once per compile rather than once
+per step. The port traces nothing, so every call is a real dispatch and
+carries ``traced="false"``; a call counts whichever route it takes (the
+plain version on the CPU, the kernel on the card), where ``launches``
+counts kernel launches only. The timer spans the host's side of the call:
+no synchronisation, no ``.item()`` and no copy to the host is added, so
+on the card the kernel's own time is not in it. Uninstrumented (the
+default), a call costs one ``is None`` check and one Python call more.
+
 Under a mesh (``launch/pcontext.py``) an operand may be a ``DTensor``. The
 launches take raw pointers, so a ``DTensor`` never reaches them: the
 wrapper runs through :func:`on_whole` — every ``DTensor`` operand
 redistributed to ``Replicate()``, the wrapper run on the local tensors,
 its outputs wrapped back as ``Replicate()``. Each such call counts in
-``quant_paths`` under (name, "replicated", "").
+``quant_paths`` under (name, "replicated", ""), and once, under the
+wrapper's name, in the dispatch counters.
 """
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -54,10 +73,69 @@ def reset_launches() -> None:
     quant_paths.clear()
 
 
+# ----------------------------------------------------------------------
+# Dispatch instrumentation
+# ----------------------------------------------------------------------
+
+_instr = None       # (registry, tracer) when instrumented
+
+
+def instrument(registry, tracer=None) -> None:
+    """Start recording kernel-dispatch metrics into ``registry`` (an
+    ``obs.MetricsRegistry``); with an ``obs.Tracer`` also emit a
+    ``dispatch:<op>`` span per call. Global (module-level): one
+    instrumentation target at a time; :func:`uninstrument` stops."""
+    global _instr
+    _instr = (registry, tracer)
+
+
+def uninstrument() -> None:
+    global _instr
+    _instr = None
+
+
+def _record(op: str, dt: float) -> None:
+    registry, _ = _instr
+    labels = {"op": op, "traced": "false"}
+    registry.counter(
+        "kernel_dispatch_calls_total", labels,
+        help="public kernel-wrapper invocations (the port traces nothing: "
+             "every call is a real dispatch, traced=false)").inc()
+    registry.counter(
+        "kernel_dispatch_seconds_total", labels, unit="s",
+        help="cumulative host-side dispatch wall time (asynchronous "
+             "device work excluded; on the CPU the plain version's whole "
+             "time)").inc(dt)
+
+
+def _dispatch(op: str, fn, *args, **kwargs):
+    """Call ``fn``, timing its host-side dispatch when instrumented. The
+    timer does not wait for the card: instrumentation adds no
+    synchronisation to a serving loop. An exception propagates unrecorded."""
+    ins = _instr
+    if ins is None:
+        return fn(*args, **kwargs)
+    _, tracer = ins
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    dt = time.perf_counter() - t0
+    _record(op, dt)
+    if tracer is not None:
+        tracer.complete(f"dispatch:{op}", t0, t0 + dt, cat="kernel")
+    return out
+
+
 def record_quant_path(op: str, path: str, role: str = "") -> None:
-    """Count one dispatch decision of ``core.quantize``."""
+    """Count one dispatch decision of ``core.quantize`` in ``quant_paths``
+    and, when instrumented, in ``quant_dispatch_total{op, path, role}``."""
     key = (op, path, role)
     quant_paths[key] = quant_paths.get(key, 0) + 1
+    ins = _instr
+    if ins is not None:
+        ins[0].counter(
+            "quant_dispatch_total", {"op": op, "path": path, "role": role},
+            help="qlinear/qeinsum execution-path decisions (per "
+                 "call)").inc()
 
 
 def _tree_map(fn, tree):
@@ -96,15 +174,21 @@ def _is_dtensor(x) -> bool:
     return type(x).__name__ == "DTensor"
 
 
-def _replicated(fn):
-    """Run the decorated wrapper through :func:`on_whole` when any
-    positional operand is a ``DTensor`` (see the module doc)."""
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
+def _public(fn):
+    """The public wrapper of ``fn``: timed by :func:`_dispatch` under
+    ``fn``'s name, and run through :func:`on_whole` when any positional
+    operand is a ``DTensor`` (see the module doc)."""
+    op = fn.__name__
+
+    def run(*args, **kwargs):
         if not any(_is_dtensor(a) for a in args):
             return fn(*args, **kwargs)
-        record_quant_path(fn.__name__, "replicated")
+        record_quant_path(op, "replicated")
         return on_whole(functools.partial(fn, **kwargs), *args)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        return _dispatch(op, run, *args, **kwargs)
     return wrapper
 
 
@@ -177,7 +261,7 @@ def _quantize(x, fmt: str, t3: bool):
     return codes, scales
 
 
-@_replicated
+@_public
 def mx_quantize(x, fmt: str = "mxfp4"):
     """MX-encode x (M, K) float, K % 32 == 0, per 32-block along K: returns
     (codes uint8 (M, K), one symmetric code per byte; scales float32
@@ -186,7 +270,7 @@ def mx_quantize(x, fmt: str = "mxfp4"):
     return _quantize(x, fmt, False)
 
 
-@_replicated
+@_public
 def t3_quantize(x, fmt: str = "mxfp4"):
     """The online T3: rotate each 32-block of x (M, K) by the Hadamard H32,
     then MX-encode as :func:`mx_quantize` — (codes uint8 (M, K), scales
@@ -194,7 +278,7 @@ def t3_quantize(x, fmt: str = "mxfp4"):
     return _quantize(x, fmt, True)
 
 
-@_replicated
+@_public
 def mx_gemm(x, w_codes, w_scales, fmt: str = "mxfp4") -> torch.Tensor:
     """Fused MX GEMM over the unpacked weight layout: y = Q_mx(x) @
     deq(w), f32 out.
@@ -287,7 +371,7 @@ def _gemm_batched(x, w_packed, w_scales_e8m0, fmt, t3):
     return y
 
 
-@_replicated
+@_public
 def mx_gemm_packed(x, w_packed, w_scales_e8m0, fmt: str = "mxfp4",
                    t3: bool = False) -> torch.Tensor:
     """Packed-native fused MX GEMM: y = Q_mx(x [· blockdiag(H32)]) @
@@ -369,7 +453,7 @@ def _flash_decode_contract(q, k_codes, k_scales, v_codes, v_scales,
             and v_scales.shape == k_scales.shape)
 
 
-@_replicated
+@_public
 def mx_flash_decode(q, k_codes, k_scales, v_codes, v_scales, q_pos, kv_len,
                     fmt: str = "mxfp8", window: int = 0) -> torch.Tensor:
     """Flash-decode attention over a contiguous packed MX KV cache.
@@ -439,7 +523,7 @@ def _flash_decode_paged_contract(q, k_codes, k_scales, v_codes, v_scales,
             and v_scales.shape == k_scales.shape)
 
 
-@_replicated
+@_public
 def mx_flash_decode_paged(q, k_codes, k_scales, v_codes, v_scales,
                           block_tables, q_pos, kv_len, fmt: str = "mxfp8",
                           window: int = 0) -> torch.Tensor:
@@ -517,7 +601,7 @@ def _flash_prefill_contract(q, k_chunk, v_chunk, k_codes, k_scales,
             and v_scales.shape == k_scales.shape)
 
 
-@_replicated
+@_public
 def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
                      v_scales, block_tables, q_start, kv_len,
                      fmt: str = "mxfp8", window: int = 0):
@@ -587,3 +671,6 @@ def mx_flash_prefill(q, k_chunk, v_chunk, k_codes, k_scales, v_codes,
     launches["mx_flash_prefill"] += 1
     return out, kc, ks, vc, vs
 
+
+# re-exported oracle
+quantize_weight_for_kernel = ref.quantize_weight_for_kernel

@@ -13,6 +13,7 @@ request lives at page ``block_table[t // P]``, row ``t % P``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -126,6 +127,16 @@ class PackedWeight:
     def ndim(self) -> int:
         return self.codes_packed.ndim
 
+    @property
+    def nbytes_packed(self) -> int:
+        return self.codes_packed.numel() + self.scales_e8m0.numel()
+
+    @property
+    def nbytes_dense(self) -> int:
+        """Byte count of the dense equivalent in the logical dtype: the
+        memory traffic a non-packed weight would cost per use."""
+        return math.prod(self.shape) * torch_dtype(self.dtype).itemsize
+
     def __getitem__(self, i) -> "PackedWeight":
         """Slice the leading (layer) axis."""
         return PackedWeight(self.codes_packed[i], self.scales_e8m0[i],
@@ -224,6 +235,10 @@ class PackedKV:
     @property
     def ndim(self) -> int:
         return self.codes.ndim
+
+    @property
+    def nbytes_packed(self) -> int:
+        return self.codes.numel() + self.scales.numel()
 
     def __getitem__(self, i) -> "PackedKV":
         """Slice the leading axes (a view: writes reach the stacked cache)."""

@@ -56,6 +56,15 @@ def mx_matmul_packed_ref(x: torch.Tensor, w_packed: torch.Tensor,
     return mx_matmul_ref(xf, codes, scales, fmt)
 
 
+def quantize_weight_for_kernel(w: torch.Tensor, fmt: str = "mxfp4",
+                               block: int = 32):
+    """Pre-quantize a (K, N) weight along K into the unpacked kernel
+    layout: (codes (K, N) uint8, scales (K//block, N) f32)."""
+    codes_t, scales_t = mxlib.encode(
+        w.mT, mxlib.MXConfig(fmt=fmt, block_size=block))
+    return codes_t.mT, scales_t.mT
+
+
 def sm_scale(dh: int) -> float:
     """Softmax scale 1/sqrt(Dh), rounded as f32 arithmetic rounds it (the
     JAX package and the CUDA kernels compute ``1.0f / sqrtf(Dh)``)."""

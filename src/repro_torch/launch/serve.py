@@ -4,8 +4,9 @@ checkpoint, or random weights) and serve it, or serve a packed MX artifact.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --reduced --ckpt-dir DIR --method rtn --fmt mxfp4 [--export ART]
     PYTHONPATH=src python -m repro_torch.launch.serve --artifact ART \
-        --backend fused --scheduler wave --kv-layout contiguous \
-        --kv-cache mxfp8 --requests 8 --prompt-len 64 --max-new 32 \
+        [--eager] --backend fused --scheduler wave \
+        --kv-layout contiguous --kv-cache mxfp8 --requests 8 \
+        --prompt-len 64 --max-new 32 \
         [--temperature 0.8 --top-k 50 --top-p 0.95 --sample-seed 0] \
         [--spec-k 4 --spec-ngram 3] \
         [--deadline-ms MS --ttft-deadline-ms MS --max-retries N \
@@ -21,7 +22,8 @@ exported as an artifact with ``--export``, then served with its weights
 packed as the artifact holds them (so ``--backend fused`` runs them through
 the GEMM kernel; the reference backend decodes them to the same values).
 With ``--artifact`` it loads an artifact either package exported and skips
-PTQ.
+PTQ; ``--eager`` dequantizes its weights at load, so every linear takes the
+reference path.
 
 Runs on the CUDA card (``--device cuda``, the default) or, when asked, on
 the CPU with the kernels' plain PyTorch versions (``--device cpu``). It
@@ -29,8 +31,11 @@ serves a synthetic wave of requests and prints throughput and the schedule
 counters as JSON; with ``--http`` it serves the engine over HTTP/SSE
 instead (``repro_torch.serving.server``) until SIGTERM/SIGINT, then prints
 the drain report and exits 1 unless it is clean. ``--trace`` exports a
-Chrome trace of the run; ``--metrics`` prints the engine's Prometheus
-metrics, with the kernel launch counts, at exit.
+Chrome trace of the run; ``--metrics`` instruments the kernel wrappers
+(``kernels.ops.instrument``: ``kernel_dispatch_calls_total``,
+``kernel_dispatch_seconds_total``, ``quant_dispatch_total``, and with
+``--trace`` a ``dispatch:<op>`` span per call) into the engine's registry
+and prints its Prometheus exposition at exit.
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ def main(argv=None) -> int:
                     help="transform-learning steps of --method")
     ap.add_argument("--export", default="",
                     help="export the PTQ result as a packed artifact")
+    ap.add_argument("--eager", action="store_true",
+                    help="with --artifact: dequantize weights at load")
     ap.add_argument("--backend", default="fused", choices=("ref", "fused"),
                     help="'fused' runs the packed weights and the quantized "
                          "KV pool through the CUDA kernels")
@@ -122,14 +129,15 @@ def main(argv=None) -> int:
                     help="export a Chrome trace of the run (opens in "
                          "Perfetto)")
     ap.add_argument("--metrics", action="store_true",
-                    help="print the engine's Prometheus metrics and the "
-                         "kernel launch counts at exit")
+                    help="record the kernel-dispatch metrics and print the "
+                         "engine's Prometheus metrics at exit")
     args = ap.parse_args(argv)
     if args.spec_k > 0:
         args.scheduler = "continuous"   # spec decoding is continuous-only
 
     from repro_torch.artifacts.store import pack_params
-    from repro_torch.obs import Tracer
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.policy import SchedulingPolicy, SpecConfig
     from repro_torch.serving.sampling import SamplingParams
@@ -146,28 +154,36 @@ def main(argv=None) -> int:
                     or args.top_p < 1.0) else None)
     spec = (SpecConfig(k=args.spec_k, ngram_max=args.spec_ngram)
             if args.spec_k > 0 else None)
-    kw = dict(batch_size=args.batch,
-              max_len=max(args.max_len, args.prompt_len + args.max_new),
-              backend=args.backend, scheduler=args.scheduler,
-              eos_id=args.eos_id, kv_cache=args.kv_cache,
-              kv_layout=args.kv_layout, page_size=args.page_size,
-              n_pages=args.n_pages,
-              tracer=Tracer() if args.trace else None, policy=policy,
-              spec=spec, device=args.device)
-    if args.artifact:
-        eng = Engine.from_artifact(args.artifact, **kw)
-    else:
-        res, cfg = ptq_from_arch(args)
-        eng = Engine(pack_params(res) if res.qm.enabled else res.params,
-                     cfg, res.qm, **kw)
-    if args.http:
-        return _serve_http(eng, args)
-    res = eng.throughput(n_requests=args.requests,
-                         prompt_len=args.prompt_len, max_new=args.max_new,
-                         seed=args.seed, sampling=sampling)
-    _obs_finish(eng, args)
-    print(json.dumps(res, default=str))
-    return 0
+    tracer = Tracer() if args.trace else None
+    metrics = MetricsRegistry() if args.metrics else None
+    if metrics is not None:          # kernel-dispatch hooks (kernels/ops.py)
+        ops.instrument(metrics, tracer)
+    try:
+        kw = dict(batch_size=args.batch,
+                  max_len=max(args.max_len, args.prompt_len + args.max_new),
+                  backend=args.backend, scheduler=args.scheduler,
+                  eos_id=args.eos_id, kv_cache=args.kv_cache,
+                  kv_layout=args.kv_layout, page_size=args.page_size,
+                  n_pages=args.n_pages, metrics=metrics, tracer=tracer,
+                  policy=policy, spec=spec, device=args.device)
+        if args.artifact:
+            eng = Engine.from_artifact(args.artifact, eager=args.eager, **kw)
+        else:
+            res, cfg = ptq_from_arch(args)
+            eng = Engine(pack_params(res) if res.qm.enabled
+                         else res.params, cfg, res.qm, **kw)
+        if args.http:
+            return _serve_http(eng, args)
+        res = eng.throughput(n_requests=args.requests,
+                             prompt_len=args.prompt_len,
+                             max_new=args.max_new, seed=args.seed,
+                             sampling=sampling)
+        _obs_finish(eng, args)
+        print(json.dumps(res, default=str))
+        return 0
+    finally:
+        if metrics is not None:
+            ops.uninstrument()
 
 
 def ptq_from_arch(args):
@@ -223,19 +239,30 @@ def _serve_http(eng, args) -> int:
 
 
 def _obs_finish(eng, args) -> None:
-    """--trace / --metrics: export the Chrome trace and print the
-    Prometheus exposition of the engine's registry, with the kernel
-    launch counts of the run (``kernels.ops.launches``)."""
+    """--trace / --metrics epilogue: the speculative-decoding acceptance
+    and the latency lines, then :func:`_obs_export`."""
+    if stats := eng.stats():
+        if args.spec_k > 0:
+            print(f"speculative decoding: "
+                  f"{stats['spec_proposed_tokens']} drafted, "
+                  f"{stats['spec_accepted_tokens']} accepted "
+                  f"(acceptance {stats['spec_acceptance']:.2f})")
+        if stats.get("ttft_p50") is not None:
+            print(f"latency: ttft p50={stats['ttft_p50']*1e3:.1f}ms "
+                  f"p99={stats['ttft_p99']*1e3:.1f}ms"
+                  + (f", tpot p50={stats['tpot_p50']*1e3:.1f}ms"
+                     if stats.get("tpot_p50") is not None else ""))
+    _obs_export(eng, args)
+
+
+def _obs_export(eng, args) -> None:
+    """Export the Chrome trace and print the Prometheus exposition of the
+    engine's registry (which carries the kernel-dispatch metrics when
+    --metrics instrumented ``kernels.ops``)."""
     if args.trace:
         print(f"trace -> {eng.tracer.export(args.trace)} "
               f"({len(eng.tracer.events())} events)")
     if args.metrics:
-        from repro_torch.kernels import ops
-        for name, n in ops.launches.items():
-            eng.metrics.counter(
-                "kernel_launches_total", {"kernel": name},
-                help="CUDA kernel launches by wrapper (plain-version calls "
-                     "on the CPU are not counted)").inc(n)
         print(eng.metrics.render_prometheus())
 
 

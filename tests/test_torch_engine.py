@@ -136,7 +136,9 @@ def test_serve_entry_point_lifecycle_trace_and_metrics(artifact, capsys,
     """The lifecycle, trace and metrics flags reach the engine: the run
     finishes under a far deadline and a roomy queue cap, the trace it
     exports validates, and the Prometheus text carries the lifecycle
-    counters and the launch counts (0 on the CPU)."""
+    counters and the JAX package's kernel-dispatch metrics: one
+    ``mx_gemm_packed`` dispatch (``traced="false"``: the port traces
+    nothing) per fused ``qlinear`` decision."""
     from repro_torch.launch import serve
     from repro_torch.obs import validate_trace
     trace = tmp_path / "serve_trace.json"
@@ -155,7 +157,20 @@ def test_serve_entry_point_lifecycle_trace_and_metrics(artifact, capsys,
     assert {"engine_step", "admit", "decode_burst", "request"} <= names
     text = "\n".join(out)
     assert "serving_requests_shed_total 0" in text
-    assert 'kernel_launches_total{kernel="mx_gemm_packed"} 0' in text
+    metric = {}
+    for line in out:
+        if line.startswith(("kernel_dispatch_calls_total{",
+                            "quant_dispatch_total{")):
+            name, value = line.rsplit(" ", 1)
+            metric[name] = float(value)
+    gemms = metric['kernel_dispatch_calls_total{op="mx_gemm_packed",'
+                   'traced="false"}']
+    fused = sum(v for k, v in metric.items()
+                if k.startswith('quant_dispatch_total{op="qlinear",'
+                                'path="fused",'))
+    assert gemms == fused > 0
+    assert 'quant_dispatch_total{op="qlinear",path="fused",role="qkv"}' \
+        in metric
 
 
 def test_port_imports_no_jax_and_defaults_to_the_card():

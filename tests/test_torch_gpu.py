@@ -534,9 +534,9 @@ def test_sample_tokens_on_the_card_equal_the_cpu(cuda_device, temp, top_k,
     assert (noise_card.cpu() - noise).abs().max() <= 4 * 2.0 ** -20
 
 
-def _small_mx_model(dev, path):
+def _small_mx_model(dev, path, fmt="mxfp4"):
     """A 4-layer model of Qwen2-0.5B's head layout (14 heads over 2 KV
-    heads of 64) at d_model 896, random weights, RTN mxfp4 with T3,
+    heads of 64) at d_model 896, random weights, RTN ``fmt`` with T3,
     exported to ``path`` and loaded packed, as the engine serves it."""
     import dataclasses
 
@@ -548,7 +548,7 @@ def _small_mx_model(dev, path):
                               d_ff=1024, vocab_size=4096, attn_chunk=128)
     gen = torch.Generator(device=dev).manual_seed(5)
     res = ptq.apply_method("rtn", transformer.init(gen, cfg, device=dev),
-                           cfg, fmt="mxfp4")
+                           cfg, fmt=fmt)
     res.qm = dataclasses.replace(res.qm, t3_block=32)
     export_artifact(res, cfg, path)
     params, _, qm = load_artifact(path, device=dev)
@@ -898,3 +898,148 @@ def test_cuda_serve_step_under_a_mesh(cuda_device, tmp_path):
     for k in ("mx_gemm_packed", "mx_flash_decode"):
         assert mesh_launches[k] == launches[k] > 0
         assert paths[(k, "replicated", "")] == launches[k]
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 13 at a reduced size: the dispatch instrumentation,
+# mxint4 and NVFP4, stochastic MX rounding, launch.serve --eager
+# ---------------------------------------------------------------------------
+
+def _paged_engine(params, cfg, qm, dev, backend="fused", kv_cache="mxfp8",
+                  **kw):
+    from repro_torch.serving.engine import Engine
+    return Engine(params, cfg, qm, backend=backend, batch_size=4,
+                  max_len=512, kv_cache=kv_cache, scheduler="continuous",
+                  kv_layout="paged", device=dev, **kw)
+
+
+def _greedy(eng, vocab, n_new=6):
+    from repro_torch.serving.engine import Request
+    rng = torch.Generator().manual_seed(8)
+    reqs = [Request(prompt=torch.randint(0, vocab, (t,), generator=rng)
+                    .numpy().astype("int32"), max_new=n_new)
+            for t in (150, 40, 97)]
+    eng.generate(reqs)
+    assert all(r.state.value == "finished" for r in reqs)
+    return [r.out.tolist() for r in reqs]
+
+
+@pytest.mark.gpu
+def test_dispatch_metrics_equal_the_launches_on_the_card(cuda_device,
+                                                         tmp_path):
+    """Phase 13 (a): a paged fused run under ``ops.instrument``: per op the
+    dispatch count (``traced="false"``) equals the launches, the
+    ``quant_dispatch_total`` counts equal ``quant_paths``, one
+    ``dispatch:<op>`` span per call, and the tokens those of the same run
+    uninstrumented."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    params, cfg, qm = _small_mx_model(cuda_device, tmp_path / "art")
+    plain = _greedy(_paged_engine(params, cfg, qm, cuda_device),
+                    cfg.vocab_size)
+    reg, tracer = MetricsRegistry(), Tracer()
+    eng = _paged_engine(params, cfg, qm, cuda_device, metrics=reg)
+    tops.reset_launches()
+    tops.instrument(reg, tracer)
+    try:
+        toks = _greedy(eng, cfg.vocab_size)
+    finally:
+        tops.uninstrument()
+    assert toks == plain
+    launched = {op: n for op, n in tops.launches.items() if n}
+    assert set(launched) == {"mx_gemm_packed", "mx_flash_prefill",
+                             "mx_flash_decode_paged"}
+    calls = {m.labels["op"]: m.value for m in reg
+             if m.name == "kernel_dispatch_calls_total"}
+    assert calls == launched
+    assert {m.labels["traced"] for m in reg
+            if m.name.startswith("kernel_dispatch_")} == {"false"}
+    assert {tuple(m.labels.values()): m.value for m in reg
+            if m.name == "quant_dispatch_total"} == tops.quant_paths
+    spans = [e["name"] for e in tracer.events()
+             if e["name"].startswith("dispatch:")]
+    assert len(spans) == sum(launched.values())
+
+
+@pytest.mark.gpu
+def test_mxint4_fused_serve_holds_to_the_reference_on_the_card(cuda_device,
+                                                               tmp_path):
+    """Phase 13 (b): an RTN mxint4 artifact served paged with the fused
+    backend launches the packed GEMM; on the dense pool, where both
+    backends attend alike, its greedy tokens equal the reference
+    backend's, and the forward logits are within 1e-2 of max |logit|."""
+    from repro_torch.models import api
+    params, cfg, qm = _small_mx_model(cuda_device, tmp_path / "art",
+                                      "mxint4")
+    assert qm.act_cfg.fmt == "mxint4"
+    tops.reset_launches()
+    _greedy(_paged_engine(params, cfg, qm, cuda_device), cfg.vocab_size)
+    assert tops.launches["mx_gemm_packed"] > 0
+    assert tops.launches["mx_flash_decode_paged"] > 0
+    dense = {b: _greedy(_paged_engine(params, cfg, qm, cuda_device,
+                                      backend=b, kv_cache="none"),
+                        cfg.vocab_size) for b in ("fused", "ref")}
+    assert dense["fused"] == dense["ref"]
+    x = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+    lf = api.forward(params, cfg, x, qm.with_backend("fused"))
+    lr = api.forward(params, cfg, x, qm.with_backend("ref"))
+    assert (lf - lr).abs().max() <= 1e-2 * lr.abs().max()
+
+
+@pytest.mark.gpu
+def test_nvfp4_fused_routes_ref_on_the_card(cuda_device):
+    """Phase 13 (c): ``QuantMode.nvfp4()`` under the fused backend routes
+    every linear ``ref`` (no packed GEMM) and gives the CPU's logits
+    within 1e-4 of max |logit|."""
+    from repro_torch import configs, devices
+    from repro_torch.core.quantize import QuantMode
+    from repro_torch.models import api, transformer
+    cfg = configs.get_reduced("qwen2-0.5b")
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    params = transformer.init(gen, cfg, device=cuda_device)
+    qm = QuantMode.nvfp4().with_backend("fused")
+    x = torch.randint(0, cfg.vocab_size, (1, 16),
+                      generator=torch.Generator().manual_seed(2))
+    tops.reset_launches()
+    card = api.forward(params, cfg, x.to(cuda_device), qm).cpu()
+    assert {k[1] for k in tops.quant_paths} == {"ref"}
+    assert tops.launches["mx_gemm_packed"] == 0
+    cpu = api.forward(devices.tree_to(params, torch.device("cpu")), cfg, x,
+                      qm)
+    assert (card - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ("mxfp4", "mxint4", "mxfp8", "nvfp4"))
+def test_stochastic_rounding_on_the_card_equals_the_cpu(cuda_device, fmt):
+    """Phase 13 (d): the same key gives bitwise the CPU's uniforms and the
+    CPU's stochastically rounded values."""
+    import dataclasses
+
+    from repro_torch.core import mx, prng
+    cfg = dataclasses.replace(
+        mx.NVFP4 if fmt == "nvfp4" else mx.MXConfig(fmt=fmt),
+        stochastic=True)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(64, 896, generator=g) * 3
+    key = prng.prng_key(9)
+    assert torch.equal(prng.uniform(prng.prng_key(9, device=cuda_device),
+                                    x.shape).cpu(), prng.uniform(key, x.shape))
+    got = mx.quantize(x.to(cuda_device), cfg, key=key).cpu()
+    assert torch.equal(got, mx.quantize(x, cfg, key=key))
+
+
+@pytest.mark.gpu
+def test_launch_serve_eager_on_the_card(cuda_device, tmp_path, capsys):
+    """Phase 13 (e): ``launch.serve --artifact --eager --metrics`` exits 0
+    with every linear on the reference path and no packed GEMM."""
+    from repro_torch.launch import serve
+    _small_mx_model(cuda_device, tmp_path / "art")
+    tops.reset_launches()
+    assert serve.main(["--artifact", str(tmp_path / "art"), "--eager",
+                       "--metrics", "--requests", "4", "--prompt-len",
+                       "32", "--max-new", "4"]) == 0
+    text = capsys.readouterr().out
+    assert {k[1] for k in tops.quant_paths} == {"ref"}
+    assert tops.launches["mx_gemm_packed"] == 0
+    assert 'path="fused"' not in text and 'path="ref"' in text
+    assert tops._instr is None
